@@ -1,0 +1,218 @@
+"""Build, load and call the CUDA kernels in ``csrc/`` through ctypes.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, into ``build/`` at the root of the
+checkout.  The file name carries a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the library.  Nothing here runs
+at import: the CPU tests import every module on a machine without nvcc.
+
+``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through the kernels (``reset_launches`` before, read after).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("sketch_kernels.cu",)
+HEADERS = ("hashes.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+MAX_CHUNKS = 64
+MAX_GROUPS = 16
+MAX_LEVELS = 16
+
+LAUNCHES: Dict[str, int] = {
+    "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+class IndexPlanC(ctypes.Structure):
+    """Mirror of ``struct IndexPlanC`` in csrc/hashes.cuh."""
+    _fields_ = [
+        ("n_groups", ctypes.c_int32),
+        ("total_chunks", ctypes.c_int32),
+        ("group_start", ctypes.c_int32 * (MAX_GROUPS + 1)),
+        ("cols", ctypes.c_int32 * MAX_CHUNKS),
+        ("ranges", ctypes.c_uint32 * MAX_GROUPS),
+        ("strides", ctypes.c_uint32 * MAX_GROUPS),
+    ]
+
+
+class LevelsC(ctypes.Structure):
+    """Mirror of ``struct LevelsC`` in csrc/hashes.cuh."""
+    _fields_ = [
+        ("n_levels", ctypes.c_int32),
+        ("divs", ctypes.c_uint32 * MAX_LEVELS),
+        ("offsets", ctypes.c_int64 * MAX_LEVELS),
+    ]
+
+
+@functools.lru_cache(maxsize=64)
+def plan_struct(plan) -> IndexPlanC:
+    """The C form of a ``kernels.hashes.IndexPlan`` (cached per plan)."""
+    if plan.table_size >= 1 << 31:
+        raise ValueError("the CUDA kernels need table sizes below 2^31 cells")
+    if len(plan.ranges) > MAX_GROUPS or plan.total_chunks > MAX_CHUNKS:
+        raise ValueError(
+            f"the CUDA kernels take at most {MAX_GROUPS} groups and "
+            f"{MAX_CHUNKS} chunks")
+    s = IndexPlanC()
+    s.n_groups = len(plan.ranges)
+    s.total_chunks = plan.total_chunks
+    pos = 0
+    for j, cols in enumerate(plan.group_cols):
+        s.group_start[j] = pos
+        for c in cols:
+            s.cols[pos] = c
+            pos += 1
+        s.ranges[j] = int(plan.ranges[j])
+        s.strides[j] = int(plan.strides[j])
+    s.group_start[len(plan.group_cols)] = pos
+    return s
+
+
+@functools.lru_cache(maxsize=64)
+def levels_struct(offsets, divs) -> LevelsC:
+    if len(offsets) > MAX_LEVELS:
+        raise ValueError(f"the CUDA kernels take at most {MAX_LEVELS} levels")
+    s = LevelsC()
+    s.n_levels = len(offsets)
+    for l, (off, div) in enumerate(zip(offsets, divs)):
+        s.offsets[l] = int(off)
+        s.divs[l] = int(div)
+    return s
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")    # the toolkit's install default
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libsketch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile the kernels unless the hashed library already exists
+    (``force`` compiles anyway, e.g. to prove the sources build)."""
+    out = library_path()
+    if out.exists() and not force:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _declare(lib) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    sigs = {
+        "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
+        "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_hier_query": [vp, i64, i32, vp, i64, vp, i64, vp, vp],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def library():
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_int32_table(table: torch.Tensor, kernel: str) -> None:
+    if table.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{kernel}: float32 tables have no CUDA kernel yet -- the f32 "
+            "variants arrive with the training slice (ROADMAP item 14)")
+    require(table.dtype == torch.int32,
+            f"{kernel}: the CUDA kernel takes int32 tables, got {table.dtype}")
+
+
+def require_on(device: torch.device, kernel: str, **tensors) -> None:
+    for name, t in tensors.items():
+        require(t.device == device,
+                f"{kernel}: {name} is on {t.device}, the table on {device}")
+        require(t.is_contiguous(), f"{kernel}: {name} must be contiguous")
+
+
+def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
+                        chunks: torch.Tensor, q: torch.Tensor,
+                        r: torch.Tensor) -> None:
+    """Checks shared by the kernels that hash in place (K1-K3): a
+    contiguous int32 [w, cols] table, int64 chunks [B, C] and params
+    q [w, C] / r [w, m] on the table's device, matching ``plan``."""
+    require_int32_table(table, kernel)
+    require_on(table.device, kernel, table=table, chunks=chunks, q=q, r=r)
+    require(chunks.dtype == q.dtype == r.dtype == torch.int64,
+            f"{kernel}: chunks, q and r must be int64")
+    w = table.shape[0]
+    require(chunks.dim() == 2 and chunks.shape[1] == plan.total_chunks
+            and tuple(q.shape) == (w, plan.total_chunks)
+            and tuple(r.shape) == (w, len(plan.ranges))
+            and w == plan.width and w <= 65535,
+            f"{kernel}: chunks {tuple(chunks.shape)}, q {tuple(q.shape)}, "
+            f"r {tuple(r.shape)} and table {tuple(table.shape)} do not "
+            "match the plan")

@@ -1,0 +1,177 @@
+// Hand-written Hopper kernels for the sketch hot path (K1-K4), with a plain C
+// interface for ctypes.  Build:
+//
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -o libsketch_kernels.so sketch_kernels.cu
+//
+// (repro_torch/kernels/_cuda.py does this at first use.)  Every launcher
+// launches on the caller's stream, does not synchronise, allocates nothing,
+// and returns cudaGetLastError() for the Python wrapper to raise on.
+//
+// What the TPU kernels did and what is left of it here: the Pallas kernels
+// turn scatters and gathers into one-hot f32 matmuls on the MXU, split
+// frequencies into 12-bit limbs and table values into 16-bit limbs so those
+// matmuls stay exact, and accumulate across a sequential grid.  None of that
+// carries over.  On Hopper an int32 atomicAdd and an int32 load are exact,
+// and two's-complement addition is associative, so any order of atomics gives
+// the table the jnp scatter gives, wraparound included.
+//
+// Tables are int32; indices, chunks and hash params are int64 (the port's
+// index dtype); frequencies are int32.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+#include "hashes.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// K1 replaces src/repro/kernels/sketch_update.py `sketch_update_pallas`
+// (`_update_kernel_int`).  table[k, idx_k(b)] += f_b, one thread per (row k,
+// key b): gridDim.y = w rows, x over keys.
+// Bound: random 4-byte read-modify-writes into a table larger than L2 (w x h
+// cells); the hash is a few dozen integer operations per (row, key).  The
+// design hashes once per (row, key) and adds with one atomic; zero-frequency
+// pad rows skip it.
+__global__ void sk_update_kernel(const __grid_constant__ IndexPlanC plan,
+                                 int32_t* __restrict__ table, int64_t h_pad,
+                                 const int64_t* __restrict__ chunks,
+                                 const int32_t* __restrict__ freqs, int64_t n,
+                                 const int64_t* __restrict__ q,
+                                 const int64_t* __restrict__ r) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (b >= n) return;
+  const int32_t f = freqs[b];
+  if (f == 0) return;
+  const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
+                                       q + k * plan.total_chunks, r + k * plan.n_groups);
+  atomicAdd(table + k * h_pad + idx, f);
+}
+
+// K2 replaces src/repro/kernels/sketch_query.py `sketch_query_pallas`
+// (`_query_kernel`).  out[b] = min_k table[k, idx_k(b)], one thread per query.
+// Bound: w random 4-byte reads per query from a table larger than L2.  The
+// design keeps the row minimum in a register, so the [w, Q] per-row estimates
+// the TPU kernel wrote out never reach memory.
+__global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
+                                const int32_t* __restrict__ table, int64_t h_pad,
+                                int32_t w, const int64_t* __restrict__ chunks, int64_t n,
+                                const int64_t* __restrict__ q,
+                                const int64_t* __restrict__ r,
+                                int32_t* __restrict__ out) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n) return;
+  const int64_t* x = chunks + b * plan.total_chunks;
+  int32_t best = INT_MAX;
+  for (int64_t k = 0; k < w; ++k) {
+    const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
+                                         r + k * plan.n_groups);
+    best = min(best, table[k * h_pad + idx]);
+  }
+  out[b] = best;
+}
+
+// K3 replaces src/repro/kernels/hier_update.py `hier_update_pallas`
+// (`_hier_kernel_int`, `_local_lanes`, `_tile_meta`).  Folds a block into every
+// level of the concatenated [w, cols] table: hash once per (row k, key b),
+// then level l's cell is offsets[l] + idx / divs[l].  The finest index is
+// below 2^31 (checked by make_hier_plan), so the unsigned 32-bit division
+// equals jax.lax.div and the reference's uint32 floor division.
+// Bound: L random 4-byte read-modify-writes per (row, key) into a table
+// larger than L2.  The design shares one hash across the L levels, as the TPU
+// kernel's VMEM index scratch did, and replaces its per-tile one-hot matmuls
+// (which touched every cell of every tile) by L atomics.
+__global__ void sk_hier_update_kernel(const __grid_constant__ IndexPlanC plan,
+                                      const __grid_constant__ LevelsC levels,
+                                      int32_t* __restrict__ table, int64_t cols,
+                                      const int64_t* __restrict__ chunks,
+                                      const int32_t* __restrict__ freqs, int64_t n,
+                                      const int64_t* __restrict__ q,
+                                      const int64_t* __restrict__ r) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (b >= n) return;
+  const int32_t f = freqs[b];
+  if (f == 0) return;
+  const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
+                                       q + k * plan.total_chunks, r + k * plan.n_groups);
+  int32_t* row = table + k * cols;
+  for (int l = 0; l < levels.n_levels; ++l) {
+    atomicAdd(row + levels.offsets[l] + idx / levels.divs[l], f);
+  }
+}
+
+// K4 replaces src/repro/kernels/hier_query.py `hier_candidate_query`
+// (`_hier_kernel`) and, with Q requests flattened onto the prefix axis,
+// `hier_candidate_query_batched`.  out[p, c] = min_k table[k*row_stride +
+// pp[k, p] + cp[k, c]], one thread per (p, c) lane.  `table` may be a level
+// view of the concatenated hierarchy table: its base offset is folded into
+// the pointer and rows are `row_stride` apart, so no level is copied.
+// Bound: w random 4-byte reads per lane from a level table larger than L2
+// (the partials are small and cached).  The design never materialises the
+// P x C key grid or the [w, P*C] per-row estimates.
+__global__ void sk_hier_query_kernel(const int32_t* __restrict__ table, int64_t row_stride,
+                                     int32_t w, const int64_t* __restrict__ pp, int64_t P,
+                                     const int64_t* __restrict__ cp, int64_t C,
+                                     int32_t* __restrict__ out) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P * C) return;
+  const int64_t p = lane / C;
+  const int64_t c = lane - p * C;
+  int32_t best = INT_MAX;
+  for (int64_t k = 0; k < w; ++k) {
+    const int64_t cell = pp[k * P + p] + cp[k * C + c];
+    best = min(best, table[k * row_stride + cell]);
+  }
+  out[lane] = best;
+}
+
+unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+int sk_sketch_update(const IndexPlanC* plan, int32_t* table, int64_t h_pad, int32_t w,
+                     const int64_t* chunks, const int32_t* freqs, int64_t n,
+                     const int64_t* q, const int64_t* r, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad, chunks,
+                                                                freqs, n, q, r);
+  return (int)cudaGetLastError();
+}
+
+int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad, int32_t w,
+                    const int64_t* chunks, int64_t n, const int64_t* q, const int64_t* r,
+                    int32_t* out, void* stream) {
+  if (n <= 0) return 0;
+  sk_query_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad, w,
+                                                                        chunks, n, q, r, out);
+  return (int)cudaGetLastError();
+}
+
+int sk_hier_update(const IndexPlanC* plan, const LevelsC* levels, int32_t* table, int64_t cols,
+                   int32_t w, const int64_t* chunks, const int32_t* freqs, int64_t n,
+                   const int64_t* q, const int64_t* r, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_hier_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, *levels, table, cols,
+                                                                     chunks, freqs, n, q, r);
+  return (int)cudaGetLastError();
+}
+
+int sk_hier_query(const int32_t* table, int64_t row_stride, int32_t w, const int64_t* pp,
+                  int64_t P, const int64_t* cp, int64_t C, int32_t* out, void* stream) {
+  if (P <= 0 || C <= 0) return 0;
+  sk_hier_query_kernel<<<blocks_for(P * C), kThreads, 0, (cudaStream_t)stream>>>(
+      table, row_stride, w, pp, P, cp, C, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

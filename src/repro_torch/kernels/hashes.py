@@ -1,0 +1,67 @@
+"""Composite index computation shared by the update/query kernels.
+
+Port of ``repro/kernels/hashes.py``.  The CUDA twin of :func:`row_indices`
+is the ``composite_index`` device helper in ``csrc/hashes.cuh`` (K0), which
+every kernel inlines; the functions here are its plain PyTorch version and
+the static layout both sides read.  The signed-mode sign bits
+(``row_sign_bits``/``signs_from_bits``) arrive with the signed slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core.hashing import cw_hash
+from repro_torch.core.sketch import SketchSpec
+
+
+class IndexPlan(NamedTuple):
+    """Static (hashable) layout extracted from a SketchSpec for kernels."""
+    group_cols: Tuple[Tuple[int, ...], ...]   # chunk columns per group
+    ranges: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    total_chunks: int
+    width: int
+
+    @property
+    def table_size(self) -> int:
+        out = 1
+        for r in self.ranges:
+            out *= int(r)
+        return out
+
+
+def make_plan(spec: SketchSpec) -> IndexPlan:
+    return IndexPlan(
+        group_cols=tuple(spec.group_chunk_columns(j) for j in range(spec.n_groups)),
+        ranges=spec.ranges,
+        strides=spec.strides,
+        total_chunks=spec.schema.total_chunks,
+        width=spec.width,
+    )
+
+
+def all_indices(plan: IndexPlan, chunks: torch.Tensor, q: torch.Tensor,
+                r: torch.Tensor) -> torch.Tensor:
+    """Composite cell indices for every row at once: int64[w, B].
+
+    chunks: int64[B, C] 16-bit key digits; q: int64[w, C]; r: int64[w, m].
+    """
+    idx = torch.zeros((q.shape[0], chunks.shape[0]), dtype=torch.int64,
+                      device=chunks.device)
+    for j, (cols, rng_j, stride_j) in enumerate(
+            zip(plan.group_cols, plan.ranges, plan.strides)):
+        cols = list(cols)
+        h = cw_hash(chunks[None, :, cols], q[:, None, cols], r[:, j, None])
+        idx += (h % int(rng_j)) * int(stride_j)
+    return idx
+
+
+def row_indices(plan: IndexPlan, chunks: torch.Tensor, q_row: torch.Tensor,
+                r_row: torch.Tensor) -> torch.Tensor:
+    """Composite cell index for ONE sketch row: int64[B] in [0, h).
+
+    chunks: int64[B, C]; q_row: int64[C]; r_row: int64[m].
+    """
+    return all_indices(plan, chunks, q_row[None], r_row[None])[0]

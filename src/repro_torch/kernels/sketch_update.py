@@ -1,0 +1,67 @@
+"""K1: fold a stream block into a flat sketch table.
+
+Port of ``repro/kernels/sketch_update.py`` (``sketch_update_pallas``).  The
+TPU kernel turns the scatter into one-hot x frequency MXU matmuls with
+12-bit frequency limbs; on Hopper the kernel (``sk_update_kernel`` in
+``csrc/sketch_kernels.cu``) hashes each (row, key) once and adds with one
+exact int32 ``atomicAdd``.  :func:`sketch_update_ref` is its plain PyTorch
+version; the wrapper runs it only for tensors on the CPU.  The signed
+variant and the float32 table variant arrive with later slices.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _cuda
+from repro_torch.kernels.hashes import IndexPlan, all_indices
+
+
+def padded_table_size(h: int, tile_h: int) -> int:
+    return ((h + tile_h - 1) // tile_h) * tile_h
+
+
+def sketch_update_ref(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
+                      freqs: torch.Tensor, q: torch.Tensor,
+                      r: torch.Tensor) -> torch.Tensor:
+    """Plain version: scatter-add over the (padded) table, in place."""
+    w, h_pad = table.shape
+    idx = all_indices(plan, chunks, q, r)                     # [w, B]
+    rows = torch.arange(w, dtype=torch.int64, device=table.device)[:, None]
+    flat = (rows * h_pad + idx).reshape(-1)
+    f = freqs.to(table.dtype).expand(w, freqs.shape[0]).reshape(-1)
+    table.view(-1).index_add_(0, flat, f)
+    return table
+
+
+def sketch_update(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
+                  freqs: torch.Tensor, q: torch.Tensor,
+                  r: torch.Tensor) -> torch.Tensor:
+    """Fold one block into ``table`` ([w, h_pad]) in place; returns it.
+
+    chunks int64[B, C], freqs [B] (cast to the table dtype), q int64[w, C],
+    r int64[w, m].  CUDA tensors launch K1 (int32 tables only); CPU tensors
+    take :func:`sketch_update_ref`.
+    """
+    if not table.is_cuda:
+        return sketch_update_ref(plan, table, chunks, freqs, q, r)
+    name = "sketch_update"
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
+    freqs = freqs.to(torch.int32)
+    _cuda.require_on(table.device, name, freqs=freqs)
+    w, h_pad = table.shape
+    b = chunks.shape[0]
+    _cuda.require(tuple(freqs.shape) == (b,) and plan.table_size <= h_pad,
+                  f"{name}: freqs {tuple(freqs.shape)} or table width {h_pad} "
+                  "does not match the block and plan")
+    plan_c = _cuda.plan_struct(plan)
+    lib = _cuda.library()
+    with torch.cuda.device(table.device):
+        rc = lib.sk_sketch_update(
+            ctypes.byref(plan_c), table.data_ptr(), h_pad, w,
+            chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(), r.data_ptr(),
+            _cuda.stream_of(table))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return table

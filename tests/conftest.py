@@ -7,6 +7,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running kernel sweeps; deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one -- run with -m gpu on a machine that has one")
 
 
 @pytest.fixture(autouse=True)
