@@ -18,15 +18,24 @@ Phases, any failure of which exits non-zero:
    read just after; hold every answer and table bit for bit against a
    second endpoint on the plain PyTorch path, and against the exact heavy
    hitters from numpy (no false negatives).  Then the flat sketch path
-   (``KernelSketch`` ingest + point queries), the same way;
-3. hold each kernel (K1-K4) against its plain version on the card at the
-   shapes the main path gives it (int32: bit-identical);
+   (``KernelSketch`` ingest + point queries), the same way.  Then the
+   turnstile path (signed Count-Sketch, ``mode="signed"``): the same
+   stream inserted whole and a seeded half of its distinct edges deleted
+   whole, shuffled together, into a signed hierarchy and a signed flat
+   sketch of the same widths; the signed threshold descent at phi of the
+   net mass and a block of signed point queries.  Deletion must cancel bit
+   for bit (the tables equal those of the kept half alone), and tables and
+   answers must equal the plain path's on the card; recall and precision
+   against the exact answer are printed, not asserted (the median descent
+   is probabilistic);
+3. hold each kernel (K1-K4, K6-K9) against its plain version on the card
+   at the shapes its path gives it (int32: bit-identical);
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
    torch.profiler; set both beside the least time the card could take;
-5. drive the main path once more under torch.profiler for the device's
-   busy and idle share.
+5. drive the main path and the turnstile path once more under
+   torch.profiler for the device's busy and idle share.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -46,6 +55,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.core import countsketch as cs  # noqa: E402
 from repro_torch.core import hierarchy as hh  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import KeySchema, draw_hash_params_np  # noqa: E402
@@ -56,13 +66,17 @@ from repro_torch.kernels import hier_query as hq  # noqa: E402
 from repro_torch.kernels import hier_update as hu  # noqa: E402
 from repro_torch.kernels import sketch_query as sq  # noqa: E402
 from repro_torch.kernels import sketch_update as su  # noqa: E402
-from repro_torch.kernels.hashes import all_indices  # noqa: E402
+from repro_torch.kernels.hashes import all_indices, all_sign_bits  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
 from repro_torch.serving.sketch_engine import (  # noqa: E402
     SketchServeEngine,
     SketchTopKEndpoint,
 )
-from repro_torch.streams import exact_heavy_hitters, zipf_graph_stream  # noqa: E402
+from repro_torch.streams import (  # noqa: E402
+    exact_heavy_hitters,
+    group_candidates,
+    zipf_graph_stream,
+)
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
 # the non-tensor 32-bit ALU rate, used for the kernels' integer operations
@@ -81,12 +95,18 @@ POOL = 4096
 # 10x the reference's own "twitter-like" default (streams/synthetic.py)
 STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
               n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/sketch_kernels.cu"
-REPLACES = {
-    "sketch_update": "src/repro/kernels/sketch_update.py:124",
-    "sketch_query": "src/repro/kernels/sketch_query.py:47",
-    "hier_update": "src/repro/kernels/hier_update.py:183",
-    "hier_query": "src/repro/kernels/hier_query.py:53",
+CSRC = "src/repro_torch/kernels/csrc/"
+# kernel name: (its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "sketch_update": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:124"),
+    "sketch_query": ("sketch_kernels.cu", "src/repro/kernels/sketch_query.py:47"),
+    "hier_update": ("sketch_kernels.cu", "src/repro/kernels/hier_update.py:183"),
+    "hier_query": ("sketch_kernels.cu", "src/repro/kernels/hier_query.py:53"),
+    "sketch_update_signed": ("signed_kernels.cu",
+                             "src/repro/kernels/sketch_update.py:184"),
+    "sketch_query_signed": ("signed_kernels.cu", "src/repro/kernels/sketch_query.py:114"),
+    "hier_update_signed": ("signed_kernels.cu", "src/repro/kernels/hier_update.py:319"),
+    "hier_query_signed": ("signed_kernels.cu", "src/repro/kernels/hier_query.py:150"),
 }
 
 
@@ -170,8 +190,9 @@ def bound_ms(n_bytes: int, n_ops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Exact for int32 and float32 values (both fit float64)."""
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
 def nbytes(*ts: torch.Tensor) -> int:
@@ -192,36 +213,46 @@ def param_bytes(q: torch.Tensor, r: torch.Tensor) -> int:
     return 4 * (q.numel() + r.numel())
 
 
-class GridLaunches:
-    """Records the inputs of every K4 wrapper call while installed, so the
-    kernel is checked and timed at the shapes the main path gives it.  It
-    wraps the wrapper and counts nothing: the launch count stays the
-    wrapper's own."""
+class Recorded:
+    """Records the inputs of every call of a grid wrapper (``module.name``)
+    while installed, so its kernel is checked and timed at the shapes the
+    path gives it.  It wraps the wrapper and counts nothing: the launch
+    count stays the wrapper's own."""
 
-    def __init__(self):
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
         self.calls = []
         self._orig = None
 
     def __enter__(self):
-        self._orig = hq.hier_candidate_query
+        self._orig = getattr(self.module, self.name)
 
-        def recording(table, pp, cp):
-            self.calls.append((table, pp, cp))
-            return self._orig(table, pp, cp)
+        def recording(*args):
+            self.calls.append(args)
+            return self._orig(*args)
 
-        hq.hier_candidate_query = recording
+        setattr(self.module, self.name, recording)
         return self
 
     def __exit__(self, *exc):
-        hq.hier_candidate_query = self._orig
+        setattr(self.module, self.name, self._orig)
 
     def shapes(self) -> dict:
-        """{(P, C): number of calls} over the recorded calls."""
+        """{(P, C): number of calls} over the recorded calls (pp and cp are
+        the second and third arguments of every grid wrapper)."""
         out = {}
-        for _, pp, cp in self.calls:
-            key = (pp.shape[1], cp.shape[1])
+        for call in self.calls:
+            key = (call[1].shape[1], call[2].shape[1])
             out[key] = out.get(key, 0) + 1
         return out
+
+    def most_launched(self):
+        """The (P, C) launched most often (the larger grid on a tie), and
+        one call at that shape."""
+        shapes = self.shapes()
+        p, c = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
+        return (p, c), next(call for call in self.calls
+                            if (call[1].shape[1], call[2].shape[1]) == (p, c))
 
 
 def hash_ops(plan, n_keys: int) -> int:
@@ -274,7 +305,7 @@ def drive_endpoint(spec, params, stream, thr, *, kernels: bool):
 
 
 def main_path(spec, params, stream, thr, exact_items):
-    with GridLaunches() as grids:
+    with Recorded(hq, "hier_candidate_query") as grids:
         _cuda.reset_launches()
         eng_k, ans_k, t_k = drive_endpoint(spec, params, stream, thr, kernels=True)
         launches = dict(_cuda.LAUNCHES)
@@ -333,38 +364,175 @@ def flat_path(spec, params, stream):
 
 
 # --------------------------------------------------------------------------
+# the turnstile path: signed Count-Sketch
+# --------------------------------------------------------------------------
+
+def turnstile_stream(stream, seed: int):
+    """The stream inserted whole and a seeded random half of its distinct
+    edges deleted whole (-f), the rows of both signs shuffled together so
+    every block carries both.  Returns (items, freqs, kept items, kept
+    freqs)."""
+    rng = np.random.default_rng((seed, 12))
+    n = stream.items.shape[0]
+    gone = np.zeros(n, bool)
+    gone[rng.permutation(n)[: n // 2]] = True
+    items = np.concatenate([stream.items, stream.items[gone]])
+    freqs = np.concatenate([stream.freqs, -stream.freqs[gone]])
+    order = rng.permutation(items.shape[0])
+    return items[order], freqs[order], stream.items[~gone], stream.freqs[~gone]
+
+
+def ingest_blocks(target, items, freqs) -> None:
+    for s in range(0, items.shape[0], BLOCK):
+        target.update(items[s : s + BLOCK], freqs[s : s + BLOCK])
+
+
+def turnstile_path(spec, hspec, cs_params, stream, seed):
+    items, freqs, kept_items, kept_freqs = turnstile_stream(stream, seed)
+    net = int(kept_freqs.sum())
+    thr = PHI * net
+    exact_items, _ = exact_heavy_hitters(kept_items, kept_freqs, thr)
+    cands = group_candidates(spec, stream.items)     # distinct sources, targets
+    queries = stream.items[np.random.default_rng(3).choice(
+        stream.items.shape[0], BLOCK, replace=False)]
+    log(f"turnstile: {items.shape[0]} rows ({int((freqs < 0).sum())} deletions), "
+        f"net mass {net}, threshold {thr}, {exact_items.shape[0]} exact heavy "
+        f"hitters, candidates {[c.shape[0] for c in cands]}")
+
+    def descend(state, use_kernel):
+        return cs.find_heavy_hitters(hspec, state, thr, cands, use_kernel=use_kernel)
+
+    with Recorded(hq, "hier_candidate_query_signed") as grids:
+        _cuda.reset_launches()
+        kh = KernelHierarchy(hspec, cs_params, block_b=BLOCK, mode="signed")
+        ks = KernelSketch(spec, cs_params, block_b=BLOCK, mode="signed")
+        _, t_hier = wall(lambda: ingest_blocks(kh, items, freqs))
+        _, t_flat = wall(lambda: ingest_blocks(ks, items, freqs))
+        descend(kh.cs_state(), True)                 # warm-up: first launches
+        hh_k, t_desc = wall(lambda: descend(kh.cs_state(), True))
+        est_k, t_query = wall(lambda: ks.query(queries))
+        launches = dict(_cuda.LAUNCHES)
+    log(f"turnstile path launches: {launches}; K9 grid shapes (P, C): {grids.shapes()}")
+    for name, kid in (("sketch_update_signed", "K6"), ("sketch_query_signed", "K7"),
+                      ("hier_update_signed", "K8"), ("hier_query_signed", "K9")):
+        check(launches[name] > 0, f"{kid} ({name}) launched on the turnstile path")
+    check(len(grids.calls) == launches["hier_query_signed"],
+          "every K9 call of the turnstile path was recorded")
+
+    # deletion cancels exactly: the tables are those of the kept half alone
+    kept_h = KernelHierarchy(hspec, cs_params, block_b=BLOCK, mode="signed")
+    kept_f = KernelSketch(spec, cs_params, block_b=BLOCK, mode="signed")
+    ingest_blocks(kept_h, kept_items, kept_freqs)
+    ingest_blocks(kept_f, kept_items, kept_freqs)
+    check(torch.equal(kh.table, kept_h.table),
+          "signed hierarchy after deletions equals the kept half's, bit for bit")
+    check(torch.equal(ks.table, kept_f.table),
+          "signed flat sketch after deletions equals the kept half's, bit for bit")
+    del kept_h, kept_f
+
+    # the plain path on the same card
+    plain_h = cs.init_hierarchy(hspec, cs_params, dtype=torch.int32, device=DEVICE)
+    plain_f = cs.init_state(spec, cs_params, dtype=torch.int32, device=DEVICE)
+
+    def plain_ingest():
+        nonlocal plain_h, plain_f
+        for s in range(0, items.shape[0], BLOCK):
+            blk_i, blk_f = items[s : s + BLOCK], freqs[s : s + BLOCK]
+            plain_h = cs.hier_update(hspec, plain_h, blk_i, blk_f)
+            plain_f = cs.update(spec, plain_f, blk_i, blk_f)
+
+    _, t_plain = wall(plain_ingest)
+    for lvl, (a, b) in enumerate(zip(kh.cs_state().tables, plain_h.tables)):
+        check(torch.equal(a, b), f"signed level {lvl} agrees with the plain path")
+    check(torch.equal(ks.cs_state().table, plain_f.table),
+          "signed flat table agrees with the plain path")
+    hh_p, t_desc_plain = wall(lambda: descend(plain_h, False))
+    check(same_answers(hh_k, hh_p), "signed descent: kernel and plain paths give the "
+          "same items and float32 estimates")
+    est_p = cs.query(spec, plain_f, queries).cpu().numpy()
+    check(np.array_equal(est_k, est_p), "signed point queries agree")
+
+    hh_items, hh_est = hh_k
+    check(hh_items.dtype == np.uint32 and hh_items.shape[1] == 2
+          and hh_est.dtype == np.float32 and bool(np.all(np.isfinite(hh_est)))
+          and bool(np.all(np.abs(hh_est) >= thr))
+          and bool(np.all(np.diff(np.abs(hh_est)) <= 0)),
+          "signed heavy hitters: uint32[K, 2] keys, finite float32 estimates "
+          "with |estimate| >= threshold, by descending |estimate|")
+    check(est_k.shape == (BLOCK,) and est_k.dtype == np.float32
+          and bool(np.all(np.isfinite(est_k))), "signed point queries: finite float32[Q]")
+    found = {tuple(r) for r in hh_items.tolist()}
+    truth = {tuple(r) for r in exact_items.tolist()}
+    hits = len(found & truth)
+    e2e = {"rows": int(items.shape[0]), "deletions": int((freqs < 0).sum()),
+           "net_mass": net, "threshold": thr,
+           "exact_heavy_hitters": len(truth), "found": len(found),
+           "recall": hits / len(truth) if truth else None,
+           "precision": hits / len(found) if found else None,
+           "hier_ingest_s": t_hier, "hier_ingest_rows_per_s": items.shape[0] / t_hier,
+           "flat_ingest_s": t_flat, "flat_ingest_rows_per_s": items.shape[0] / t_flat,
+           "descent_ms": t_desc * 1e3, "query65536_ms": t_query * 1e3,
+           "plain_ingest_s": t_plain, "plain_descent_ms": t_desc_plain * 1e3}
+    del plain_h, plain_f
+    return kh, ks, (items, freqs, queries), launches, grids, e2e
+
+
+# --------------------------------------------------------------------------
 # phases 3-4: each kernel against its plain version, timed, beside its bound
 # --------------------------------------------------------------------------
 
-def kernel_rows(hspec, eng, ks, stream, grids, launches):
-    dev = torch.device(DEVICE)
-    q, r = ks.params.q, ks.params.r
-    blk_items = stream.items[:BLOCK]
-    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
-    rows = []
-    # the main path finds the tables cold (each block and each grid touches
-    # other cells), so every timed call runs after the 50 MB L2 is evicted
-    # by rewriting a 256 MB buffer
-    l2 = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+class KernelRows:
+    """Holds each kernel against its plain version, times both and the
+    library yardstick, and sets them beside the bound; collects the rows of
+    the ``kernels`` line."""
 
-    def evict():
-        l2.add_(1)
+    def __init__(self, launches):
+        self.launches = launches
+        self.rows = []
+        # the paths find the tables cold (each block and each grid touches
+        # other cells), so every timed call runs after the 50 MB L2 is
+        # evicted by rewriting a 256 MB buffer
+        self._l2 = torch.zeros(1 << 26, dtype=torch.int32, device=DEVICE)
 
-    def row(name, symbol, *, err, call, plain, library, n_bytes, n_ops, shape):
+    def evict(self) -> None:
+        self._l2.add_(1)
+
+    def add(self, name, symbol, *, err, call, plain, library, n_bytes, n_ops, shape):
         check(err == 0, f"{name} bit-identical to its plain version (max |err| {err})")
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        out = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-               "replaces": REPLACES[name], "launches": launches[name],
-               "max_abs_err": err, "ms": cold_ms(call, 100, evict),
-               "plain_ms": cold_ms(plain, 20, evict), "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": cold_ms(library, 50, evict) if library else None,
-               "device_ms": kernel_device_ms(call, symbol, 50, evict),
+        source, replaces = KERNELS[name]
+        out = {"name": name, "route": "cuda", "source": CSRC + source,
+               "replaces": replaces, "launches": self.launches[name],
+               "max_abs_err": err, "ms": cold_ms(call, 100, self.evict),
+               "plain_ms": cold_ms(plain, 20, self.evict), "bound_ms": b_ms,
+               "bound_by": b_by,
+               "library_ms": cold_ms(library, 50, self.evict) if library else None,
+               "device_ms": kernel_device_ms(call, symbol, 50, self.evict),
                "warm_call_ms": cuda_ms(call, 200), "shape": shape}
-        rows.append(out)
+        self.rows.append(out)
         log(f"{name}: {out['ms']:.5f} ms cold, {out['device_ms']} ms on the device "
             f"(profiler), {out['warm_call_ms']:.5f} ms per warm back-to-back call; "
             f"plain {out['plain_ms']:.5f}, bound {b_ms:.5f} by {b_by}, library "
             f"{out['library_ms']} at {shape}")
+
+
+def grid_replay_err(calls, kernel, plain) -> float:
+    """Max |err| of the kernel against its plain version over every
+    recorded grid call of a path."""
+    return max(max_abs_err(kernel(*call), plain(*call)) for call in calls)
+
+
+def grid_shape_note(grids, p, c) -> str:
+    shapes = grids.shapes()
+    return (f"P={p} C={c}; {shapes[(p, c)]} of {len(grids.calls)} launches; all (P, C): "
+            + ", ".join(f"{a}x{b}:{n}" for (a, b), n in sorted(shapes.items())))
+
+
+def kernel_rows(kr, hspec, eng, ks, stream, grids):
+    dev = torch.device(DEVICE)
+    q, r = ks.params.q, ks.params.r
+    blk_items = stream.items[:BLOCK]
+    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
 
     # K3: one 65,536-row block into the live concatenated hierarchy table
     kh = KernelHierarchy(hspec, (q, r))
@@ -380,39 +548,33 @@ def kernel_rows(hspec, eng, ks, stream, grids, launches):
     f_all = f.expand(w * hplan.n_levels, BLOCK).reshape(-1)
     touched = int(torch.unique(flat[f_all != 0]).numel())
     scratch = table.clone()
-    row("hier_update", "sk_hier_update_kernel",
-        err=max_abs_err(hu.hier_update(hplan, table.clone(), chunks, f, q, r),
-                        hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
-        call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
-        plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
-        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-        n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-        + 8 * touched,
-        n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
-        shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}")
+    kr.add("hier_update", "sk_hier_update_kernel",
+           err=max_abs_err(hu.hier_update(hplan, table.clone(), chunks, f, q, r),
+                           hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
+           call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
+           plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + 8 * touched,
+           n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
+           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}")
     del scratch, kh
 
     # K4: every grid the main path launched, each held against the plain
     # version; timed at the (P, C) it launched most often -- the descent
     # chunks each level's grid into max_batch // C prefixes per launch
-    err = max(max_abs_err(hq.hier_candidate_query(*call), hq.hier_candidate_query_ref(*call))
-              for call in grids.calls)
-    shapes = grids.shapes()
-    p, c = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
-    view, pp, cp = next(call for call in grids.calls
-                        if (call[1].shape[1], call[2].shape[1]) == (p, c))
+    err = grid_replay_err(grids.calls, hq.hier_candidate_query, hq.hier_candidate_query_ref)
+    (p, c), (view, pp, cp) = grids.most_launched()
     w = view.shape[0]
     cells = (torch.arange(w, device=dev)[:, None] * view.stride(0)
              + (pp[:, :, None] + cp[:, None, :]).reshape(w, -1))
     touched = int(torch.unique(cells).numel())
     del cells
-    row("hier_query", "sk_hier_query_kernel", err=err,
-        call=lambda: hq.hier_candidate_query(view, pp, cp),
-        plain=lambda: hq.hier_candidate_query_ref(view, pp, cp), library=None,
-        n_bytes=4 * w * (p + c) + 4 * p * c + 4 * touched, n_ops=3 * w * p * c,
-        shape=f"P={p} C={c} w={w} cols={view.shape[1]}; {shapes[(p, c)]} of "
-              f"{len(grids.calls)} launches; all (P, C): "
-              + ", ".join(f"{a}x{b}:{n}" for (a, b), n in sorted(shapes.items())))
+    kr.add("hier_query", "sk_hier_query_kernel", err=err,
+           call=lambda: hq.hier_candidate_query(view, pp, cp),
+           plain=lambda: hq.hier_candidate_query_ref(view, pp, cp), library=None,
+           n_bytes=4 * w * (p + c) + 4 * p * c + 4 * touched, n_ops=3 * w * p * c,
+           shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
 
     # K1 / K2: the flat sketch's block fold and a block of point queries
     plan, flat_table = ks.plan, ks.table
@@ -423,16 +585,16 @@ def kernel_rows(hspec, eng, ks, stream, grids, launches):
     f_all = f.expand(w, BLOCK).reshape(-1)
     touched = int(torch.unique(flat[f_all != 0]).numel())
     scratch = flat_table.clone()
-    row("sketch_update", "sk_update_kernel",
-        err=max_abs_err(su.sketch_update(plan, flat_table.clone(), fchunks, f, q, r),
-                        su.sketch_update_ref(plan, flat_table.clone(), fchunks, f, q, r)),
-        call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
-        plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
-        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-        n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-        + 8 * touched,
-        n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
-        shape=f"B={BLOCK} w={w} h_pad={h_pad}")
+    kr.add("sketch_update", "sk_update_kernel",
+           err=max_abs_err(su.sketch_update(plan, flat_table.clone(), fchunks, f, q, r),
+                           su.sketch_update_ref(plan, flat_table.clone(), fchunks, f, q, r)),
+           call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
+           plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+           n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + 8 * touched,
+           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+           shape=f"B={BLOCK} w={w} h_pad={h_pad}")
     del scratch
 
     rng = np.random.default_rng(2)
@@ -441,32 +603,119 @@ def kernel_rows(hspec, eng, ks, stream, grids, launches):
     idx = all_indices(plan, qchunks, q, r)
     touched = int(torch.unique(
         (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)).numel())
-    row("sketch_query", "sk_query_kernel",
-        err=max_abs_err(sq.sketch_query(plan, flat_table, qchunks, q, r),
-                        sq.sketch_query_ref(plan, flat_table, qchunks, q, r)),
-        call=lambda: sq.sketch_query(plan, flat_table, qchunks, q, r),
-        plain=lambda: sq.sketch_query_ref(plan, flat_table, qchunks, q, r), library=None,
-        n_bytes=key_bytes(ks.spec.schema, BLOCK) + param_bytes(q, r) + 4 * BLOCK
-        + 4 * touched,
-        n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
-        shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
-    return rows
+    kr.add("sketch_query", "sk_query_kernel",
+           err=max_abs_err(sq.sketch_query(plan, flat_table, qchunks, q, r),
+                           sq.sketch_query_ref(plan, flat_table, qchunks, q, r)),
+           call=lambda: sq.sketch_query(plan, flat_table, qchunks, q, r),
+           plain=lambda: sq.sketch_query_ref(plan, flat_table, qchunks, q, r), library=None,
+           n_bytes=key_bytes(ks.spec.schema, BLOCK) + param_bytes(q, r) + 4 * BLOCK
+           + 4 * touched,
+           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+           shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
 
 
-def device_profile(spec, params, stream, thr):
-    """The main path once more under torch.profiler: the device's busy and
-    idle share of the ingest + query wall time, and the kernels that take
-    the device time."""
-    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL,
-                            use_update_kernel=True, use_kernel=True)
-    eng = SketchServeEngine(ep, max_staleness=0)
+def signed_values(bits, level: int, f: torch.Tensor) -> torch.Tensor:
+    """s_level * f per (row, key), int32, as the signed kernels add it."""
+    return ((1 - 2 * ((bits >> level) & 1)) * f.to(torch.int64)).to(torch.int32)
 
-    def run():
-        for s in range(0, stream.items.shape[0], BLOCK):
-            eng.ingest(stream.items[s : s + BLOCK], stream.freqs[s : s + BLOCK])
-        eng.heavy_hitters(thr)
-        eng.topk(100)
 
+def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids):
+    dev = torch.device(DEVICE)
+    items, freqs, queries = turnstile
+    (q, r), s_q, s_r = ks.cs_params
+    blk_items = items[:BLOCK]
+    f = torch.from_numpy(freqs[:BLOCK]).to(dev, torch.int32)
+
+    # K8: one 65,536-row turnstile block into the live signed hierarchy table
+    hplan, table = kh.hplan, kh.table
+    ordered = hspec.level_items(hspec.n_levels - 1, as_index_tensor(blk_items, dev))
+    chunks = hspec.levels[-1].schema.module_chunks(ordered)
+    w, cols = table.shape
+    idx = all_indices(hplan.plan, chunks, q, r)
+    bits = all_sign_bits(hplan.plan, chunks, s_q, s_r)
+    base = torch.arange(w, device=dev)[:, None] * cols
+    flat = torch.cat([(base + idx // d + o).reshape(-1)
+                      for o, d in zip(hplan.level_offsets, hplan.level_divs)])
+    vals = torch.cat([signed_values(bits, l, f).reshape(-1) for l in range(hplan.n_levels)])
+    touched = int(torch.unique(flat[vals != 0]).numel())
+    scratch = table.clone()
+    kr.add("hier_update_signed", "sk_hier_update_signed_kernel",
+           err=max_abs_err(
+               hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r),
+               hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q, s_r)),
+           call=lambda: hu.hier_update_signed(hplan, scratch, chunks, f, q, r, s_q, s_r),
+           plain=lambda: hu.hier_update_signed_ref(hplan, scratch, chunks, f, q, r, s_q, s_r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + param_bytes(s_q, s_r) + 8 * touched,
+           n_ops=2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels,
+           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, "
+                 f"{int((f < 0).sum())} deletions")
+    del scratch
+
+    # K9: every grid the signed descent launched, each held against the
+    # plain version; timed at the (P, C) it launched most often
+    err = grid_replay_err(grids.calls, hq.hier_candidate_query_signed,
+                          hq.hier_candidate_query_signed_ref)
+    (p, c), (view, pp, cp, sp, sc) = grids.most_launched()
+    w = view.shape[0]
+    cells = (torch.arange(w, device=dev)[:, None] * view.stride(0)
+             + (pp[:, :, None] + cp[:, None, :]).reshape(w, -1))
+    touched = int(torch.unique(cells).numel())
+    del cells
+    kr.add("hier_query_signed", "sk_hier_query_signed_kernel", err=err,
+           call=lambda: hq.hier_candidate_query_signed(view, pp, cp, sp, sc),
+           plain=lambda: hq.hier_candidate_query_signed_ref(view, pp, cp, sp, sc),
+           library=None,
+           n_bytes=8 * w * (p + c) + 4 * w * p * c + 4 * touched, n_ops=4 * w * p * c,
+           shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
+
+    # K6 / K7: the signed flat sketch's block fold and a block of point queries
+    plan, flat_table = ks.plan, ks.table
+    fchunks = ks.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
+    w, h_pad = flat_table.shape
+    idx = all_indices(plan, fchunks, q, r)
+    bits = all_sign_bits(plan, fchunks, s_q, s_r)
+    flat = (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)
+    vals = signed_values(bits, len(plan.ranges) - 1, f).reshape(-1)
+    touched = int(torch.unique(flat[vals != 0]).numel())
+    scratch = flat_table.clone()
+    kr.add("sketch_update_signed", "sk_update_signed_kernel",
+           err=max_abs_err(
+               su.sketch_update_signed(plan, flat_table.clone(), fchunks, f, q, r, s_q, s_r),
+               su.sketch_update_signed_ref(plan, flat_table.clone(), fchunks, f, q, r,
+                                           s_q, s_r)),
+           call=lambda: su.sketch_update_signed(plan, scratch, fchunks, f, q, r, s_q, s_r),
+           plain=lambda: su.sketch_update_signed_ref(plan, scratch, fchunks, f, q, r,
+                                                     s_q, s_r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+           n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + param_bytes(s_q, s_r) + 8 * touched,
+           n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
+           shape=f"B={BLOCK} w={w} h_pad={h_pad}, {int((f < 0).sum())} deletions")
+    del scratch
+
+    qchunks = ks.spec.schema.module_chunks(as_index_tensor(queries, dev))
+    idx = all_indices(plan, qchunks, q, r)
+    touched = int(torch.unique(
+        (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)).numel())
+    kr.add("sketch_query_signed", "sk_query_signed_kernel",
+           err=max_abs_err(
+               sq.sketch_query_signed(plan, flat_table, qchunks, q, r, s_q, s_r),
+               sq.sketch_query_signed_ref(plan, flat_table, qchunks, q, r, s_q, s_r)),
+           call=lambda: sq.sketch_query_signed(plan, flat_table, qchunks, q, r, s_q, s_r),
+           plain=lambda: sq.sketch_query_signed_ref(plan, flat_table, qchunks, q, r,
+                                                    s_q, s_r),
+           library=None,
+           n_bytes=key_bytes(ks.spec.schema, BLOCK) + param_bytes(q, r)
+           + param_bytes(s_q, s_r) + 4 * w * BLOCK + 4 * touched,
+           n_ops=2 * hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+           shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
+
+
+def busy_share(run) -> dict:
+    """Run ``run`` under torch.profiler: the device's busy and idle share of
+    its wall time, and the kernels that take the device time."""
     _, secs, kernels = device_kernels(run)
     busy = sum(us for _, us in kernels) / 1e6
     by_name = {}
@@ -477,6 +726,38 @@ def device_profile(spec, params, stream, thr):
     return {"wall_s": secs, "device_busy_s": busy,
             "idle_share": 1 - busy / secs if secs else None,
             "top_kernels": [[name[:80], tot / 1e3, n] for name, (tot, n) in top]}
+
+
+def device_profile(spec, params, stream, thr):
+    """The main path once more (ingest, ``heavy_hitters``, ``topk``) under
+    the profiler."""
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL,
+                            use_update_kernel=True, use_kernel=True)
+    eng = SketchServeEngine(ep, max_staleness=0)
+
+    def run():
+        for s in range(0, stream.items.shape[0], BLOCK):
+            eng.ingest(stream.items[s : s + BLOCK], stream.freqs[s : s + BLOCK])
+        eng.heavy_hitters(thr)
+        eng.topk(100)
+
+    return busy_share(run)
+
+
+def turnstile_profile(spec, hspec, cs_params, turnstile, thr, cands):
+    """The turnstile path once more (both ingests, the descent, the point
+    queries) under the profiler."""
+    items, freqs, queries = turnstile
+    kh = KernelHierarchy(hspec, cs_params, block_b=BLOCK, mode="signed")
+    ks = KernelSketch(spec, cs_params, block_b=BLOCK, mode="signed")
+
+    def run():
+        ingest_blocks(kh, items, freqs)
+        ingest_blocks(ks, items, freqs)
+        cs.find_heavy_hitters(hspec, kh.cs_state(), thr, cands, use_kernel=True)
+        ks.query(queries)
+
+    return busy_share(run)
 
 
 def main(argv=None) -> int:
@@ -506,6 +787,8 @@ def main(argv=None) -> int:
     hspec = hh.HierarchySpec.from_spec(spec)
     params = (draw_hash_params_np(rng, (WIDTH, spec.schema.total_chunks)),
               draw_hash_params_np(rng, (WIDTH, spec.n_groups)))
+    cs_params = params + (draw_hash_params_np(rng, (WIDTH, spec.schema.total_chunks)),
+                          draw_hash_params_np(rng, (WIDTH, spec.n_groups)))
     log(f"stream: {stream.items.shape[0]} distinct edges, {stream.total} arrivals, "
         f"threshold {thr}, {exact_items.shape[0]} exact heavy hitters "
         f"({time.perf_counter() - t0:.1f} s to make)")
@@ -526,12 +809,23 @@ def main(argv=None) -> int:
                block=BLOCK, threshold=thr,
                table_mb=hspec.table_cells * 4 / 1e6)
 
-    rows = kernel_rows(hspec, eng, ks, stream, grids, {**main_launches, **{
-        k: v for k, v in flat_launches.items() if k.startswith("sketch_")}})
-    del eng, ks, grids
+    kh_s, ks_s, turnstile, turn_launches, sgrids, turn_e2e = turnstile_path(
+        spec, hspec, cs_params, stream, args.seed)
+    e2e["turnstile"] = turn_e2e
+
+    kr = KernelRows({**main_launches,
+                     "sketch_update": flat_launches["sketch_update"],
+                     "sketch_query": flat_launches["sketch_query"],
+                     **{k: v for k, v in turn_launches.items() if k.endswith("_signed")}})
+    kernel_rows(kr, hspec, eng, ks, stream, grids)
+    signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids)
+    del eng, ks, grids, kh_s, ks_s, sgrids
     e2e["profile"] = device_profile(spec, params, stream, thr)
+    turn_e2e["profile"] = turnstile_profile(
+        spec, hspec, cs_params, turnstile, turn_e2e["threshold"],
+        group_candidates(spec, stream.items))
     log("e2e " + json.dumps(e2e))
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

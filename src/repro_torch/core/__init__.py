@@ -1,3 +1,4 @@
 """MOD-Sketch core, PyTorch port: hashing, the flat sketch, the hierarchy,
-space-saving pools and the block padding the endpoint uses."""
+the signed Count-Sketch, space-saving pools and the block padding the
+endpoint uses."""
 from repro_torch.core.hashing import KeySchema, P31  # noqa: F401

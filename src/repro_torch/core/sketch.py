@@ -282,13 +282,15 @@ def merge(a: SketchState, b: SketchState) -> SketchState:
     return SketchState(params=a.params, table=a.table + b.table)
 
 
-def group_subindex(spec: SketchSpec, params: SketchParams, group: int,
-                   values) -> torch.Tensor:
-    """Sub-index of ``values`` within ``group``'s hash range: int64[w, Q].
+def group_hash(spec: SketchSpec, params: SketchParams, group: int,
+               values) -> torch.Tensor:
+    """The CW hash of ``values`` under ``group``'s params: int64[w, Q] in
+    [0, P31).
 
-    ``values``: [Q, len(group modules)] module values for the group.  This
-    is the per-group factor of the mixed-radix cell address, from which
-    the hierarchy's separable candidate queries are built.
+    ``values``: [Q, len(group modules)] module values for the group.  Its
+    residue mod the group's range is the bucket factor
+    (:func:`group_subindex`); under the sign params its low bit is the sign
+    factor (``countsketch.group_sign_parity``).
     """
     values = as_index_tensor(values, params.q.device)
     vcols = []
@@ -297,9 +299,19 @@ def group_subindex(spec: SketchSpec, params: SketchParams, group: int,
             vcols.append((values[:, mi] >> (16 * c)) & 0xFFFF)
     gchunks = torch.stack(vcols, dim=-1)                      # [Q, Cg]
     cols = list(spec.group_chunk_columns(group))
-    h = cw_hash(gchunks[None], params.q[:, None, cols],
-                params.r[:, group, None])                     # [w, Q]
-    return h % int(spec.ranges[group])
+    return cw_hash(gchunks[None], params.q[:, None, cols],
+                   params.r[:, group, None])                  # [w, Q]
+
+
+def group_subindex(spec: SketchSpec, params: SketchParams, group: int,
+                   values) -> torch.Tensor:
+    """Sub-index of ``values`` within ``group``'s hash range: int64[w, Q].
+
+    ``values``: [Q, len(group modules)] module values for the group.  This
+    is the per-group factor of the mixed-radix cell address, from which
+    the hierarchy's separable candidate queries are built.
+    """
+    return group_hash(spec, params, group, values) % int(spec.ranges[group])
 
 
 # --------------------------------------------------------------------------

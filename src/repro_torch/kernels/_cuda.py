@@ -1,7 +1,8 @@
 """Build, load and call the CUDA kernels in ``csrc/`` through ctypes.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``build/`` at the root of the
+The sources are compiled with ``nvcc`` for ``sm_90a`` -- one ``nvcc`` per
+source, all started together -- and linked into one shared library with a
+plain C interface, at first use, into ``build/`` at the root of the
 checkout.  The file name carries a hash of the sources and flags, so an
 edit rebuilds and an unchanged tree reuses the library.  Nothing here runs
 at import: the CPU tests import every module on a machine without nvcc.
@@ -25,18 +26,20 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sketch_kernels.cu",)
+SOURCES = ("sketch_kernels.cu", "signed_kernels.cu")
 HEADERS = ("hashes.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 MAX_CHUNKS = 64
 MAX_GROUPS = 16
 MAX_LEVELS = 16
 
 LAUNCHES: Dict[str, int] = {
-    "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0}
+    "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0,
+    "sketch_update_signed": 0, "sketch_query_signed": 0,
+    "hier_update_signed": 0, "hier_query_signed": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -125,21 +128,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsketch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_all(cmds, what: str) -> None:
+    """Run the nvcc commands together and wait for every one of them; raise
+    with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to {what} ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}{err}")
+
+
 def build(force: bool = False) -> Path:
     """Compile the kernels unless the hashed library already exists
-    (``force`` compiles anyway, e.g. to prove the sources build)."""
+    (``force`` compiles anyway, e.g. to prove the sources build): one
+    ``nvcc -c`` per source in parallel, then one link."""
     out = library_path()
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        _nvcc_all([[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                    str(CSRC / src)] for src, obj in zip(SOURCES, objs)], "compile")
+        _nvcc_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                    *map(str, objs)]], "link")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -150,6 +170,10 @@ def _declare(lib) -> None:
         "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
         "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
         "sk_hier_query": [vp, i64, i32, vp, i64, vp, i64, vp, vp],
+        "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
+        "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, vp],
+        "sk_hier_update_signed": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
+        "sk_hier_query_signed": [vp, i64, i32, vp, vp, i64, vp, vp, i64, vp, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -201,7 +225,7 @@ def require_on(device: torch.device, kernel: str, **tensors) -> None:
 def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
                         chunks: torch.Tensor, q: torch.Tensor,
                         r: torch.Tensor) -> None:
-    """Checks shared by the kernels that hash in place (K1-K3): a
+    """Checks shared by the kernels that hash in place (K1-K3, K6-K8): a
     contiguous int32 [w, cols] table, int64 chunks [B, C] and params
     q [w, C] / r [w, m] on the table's device, matching ``plan``."""
     require_int32_table(table, kernel)

@@ -1,6 +1,7 @@
-// K0: the composite Carter-Wegman cell index, as a __device__ helper.
+// K0: the composite Carter-Wegman cell index, as a __device__ helper, and
+// K0s: the packed signed-mode sign bits beside it.
 //
-// Replaces src/repro/kernels/hashes.py `row_indices` (inlined in every
+// K0 replaces src/repro/kernels/hashes.py `row_indices` (inlined in every
 // Pallas kernel body there).  One row's cell index of one key is
 //
 //     sum_j ((r_j + sum_{c in group j} q_c * x_c) mod P31) mod range_j * stride_j
@@ -64,4 +65,32 @@ __device__ __forceinline__ uint32_t composite_index(const IndexPlanC& plan,
     idx += (sk_mod_p31(acc) % plan.ranges[j]) * plan.strides[j];
   }
   return idx;
+}
+
+// K0s replaces src/repro/kernels/hashes.py `row_sign_bits` and
+// `signs_from_bits` (inlined in the signed Pallas kernels).  One CW pass per
+// group under the sign params; bit j of the result is the XOR of the hash
+// parities of groups 0..j, i.e. the sign of the level-j prefix (1 = -1).  The
+// parity is taken of the canonical residue in [0, P31) that sk_mod_p31
+// returns -- the low bit of an unreduced 64-bit sum would be another bit.
+__device__ __forceinline__ uint32_t composite_sign_bits(const IndexPlanC& plan,
+                                                        const int64_t* __restrict__ x,
+                                                        const int64_t* __restrict__ sq,
+                                                        const int64_t* __restrict__ sr) {
+  uint32_t bits = 0, cum = 0;
+  for (int j = 0; j < plan.n_groups; ++j) {
+    uint64_t acc = (uint64_t)sr[j];
+    for (int t = plan.group_start[j]; t < plan.group_start[j + 1]; ++t) {
+      const int c = plan.cols[t];
+      acc += (uint64_t)sq[c] * (uint64_t)x[c];
+    }
+    cum ^= sk_mod_p31(acc) & 1u;
+    bits |= cum << j;
+  }
+  return bits;
+}
+
+// v or -v as the sign bit says, in two's complement (no signed overflow).
+__device__ __forceinline__ int32_t sk_apply_sign(int32_t v, uint32_t negative) {
+  return negative ? (int32_t)(0u - (uint32_t)v) : v;
 }

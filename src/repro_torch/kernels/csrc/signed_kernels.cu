@@ -1,0 +1,202 @@
+// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9),
+// with a plain C interface for ctypes.  Built beside sketch_kernels.cu into
+// one shared library by repro_torch/kernels/_cuda.py:
+//
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+//        -c signed_kernels.cu
+//
+// Every launcher launches on the caller's stream, does not synchronise,
+// allocates nothing, and returns cudaGetLastError() for the Python wrapper
+// to raise on.
+//
+// What the TPU kernels did and what is left of it here: the Pallas signed
+// kernels multiply the +-1 sign into 12-bit frequency limbs before a one-hot
+// f32 matmul on the MXU, and gather through 16-bit table limbs.  None of
+// that carries over.  The sign is one bit of the packed parities
+// (composite_sign_bits, K0s), applied to an int32 value in two's complement;
+// an int32 atomicAdd is exact and two's-complement addition associative, so
+// any order of atomics gives the jnp scatter's table, wraparound included.
+// The median over rows stays with the caller, as in the reference: K7 and
+// K9 write the signed rows.
+//
+// Tables are int32; indices, chunks and hash params int64 (the port's index
+// dtype); frequencies int32, of either sign; sign partials float32 +-1.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hashes.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// K6 replaces src/repro/kernels/sketch_update.py `sketch_update_signed_pallas`
+// (`_update_kernel_signed_int`).  table[k, idx_k(b)] += s_k(b) * f_b, one
+// thread per (row k, key b): gridDim.y = w rows, x over keys.  The flat sign
+// is the top group's bit.
+// Bound: random 4-byte read-modify-writes into a table larger than L2, as K1;
+// the sign is a second CW pass, a few dozen more integer operations per
+// (row, key).  The design hashes cell and sign once and adds with one atomic;
+// zero-frequency rows skip it.
+__global__ void sk_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
+                                        int32_t* __restrict__ table, int64_t h_pad,
+                                        const int64_t* __restrict__ chunks,
+                                        const int32_t* __restrict__ freqs, int64_t n,
+                                        const int64_t* __restrict__ q,
+                                        const int64_t* __restrict__ r,
+                                        const int64_t* __restrict__ sq,
+                                        const int64_t* __restrict__ sr) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (b >= n) return;
+  const int32_t f = freqs[b];
+  if (f == 0) return;
+  const int64_t* x = chunks + b * plan.total_chunks;
+  const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
+                                       r + k * plan.n_groups);
+  const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
+                                            sr + k * plan.n_groups);
+  atomicAdd(table + k * h_pad + idx, sk_apply_sign(f, (bits >> (plan.n_groups - 1)) & 1u));
+}
+
+// K7 replaces src/repro/kernels/sketch_query.py `sketch_query_signed_pallas`
+// (`_query_kernel_signed`).  out[k, b] = table[k, idx_k(b)] * s_k(b), one
+// thread per (row k, query b).
+// Bound: one random 4-byte read per (row, query) from a table larger than L2,
+// plus the coalesced int32 [w, Q] write.  The design hashes cell and sign in
+// registers; nothing but the signed value reaches memory.
+__global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
+                                       const int32_t* __restrict__ table, int64_t h_pad,
+                                       const int64_t* __restrict__ chunks, int64_t n,
+                                       const int64_t* __restrict__ q,
+                                       const int64_t* __restrict__ r,
+                                       const int64_t* __restrict__ sq,
+                                       const int64_t* __restrict__ sr,
+                                       int32_t* __restrict__ out) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (b >= n) return;
+  const int64_t* x = chunks + b * plan.total_chunks;
+  const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
+                                       r + k * plan.n_groups);
+  const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
+                                            sr + k * plan.n_groups);
+  out[k * n + b] = sk_apply_sign(table[k * h_pad + idx], (bits >> (plan.n_groups - 1)) & 1u);
+}
+
+// K8 replaces src/repro/kernels/hier_update.py `hier_update_signed_pallas`
+// (`_hier_kernel_signed_int`, `_tile_meta_signed`).  Folds a block into every
+// level of the concatenated [w, cols] table: hash the finest index and the
+// packed sign bits once per (row k, key b), then level l adds s_l * f at
+// offsets[l] + idx / divs[l], s_l being bit l.  The finest index is below 2^31
+// (make_hier_plan), so the unsigned division equals jax.lax.div.
+// Bound: L random 4-byte read-modify-writes per (row, key) into a table
+// larger than L2, as K3.  The design replaces the TPU kernel's per-tile
+// metadata (divisor, base column, level) and its VMEM index/sign scratch by
+// registers, and its one-hot limb matmuls by L atomics.
+__global__ void sk_hier_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
+                                             const __grid_constant__ LevelsC levels,
+                                             int32_t* __restrict__ table, int64_t cols,
+                                             const int64_t* __restrict__ chunks,
+                                             const int32_t* __restrict__ freqs, int64_t n,
+                                             const int64_t* __restrict__ q,
+                                             const int64_t* __restrict__ r,
+                                             const int64_t* __restrict__ sq,
+                                             const int64_t* __restrict__ sr) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (b >= n) return;
+  const int32_t f = freqs[b];
+  if (f == 0) return;
+  const int64_t* x = chunks + b * plan.total_chunks;
+  const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
+                                       r + k * plan.n_groups);
+  const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
+                                            sr + k * plan.n_groups);
+  int32_t* row = table + k * cols;
+  for (int l = 0; l < levels.n_levels; ++l) {
+    atomicAdd(row + levels.offsets[l] + idx / levels.divs[l],
+              sk_apply_sign(f, (bits >> l) & 1u));
+  }
+}
+
+// K9 replaces src/repro/kernels/hier_query.py `hier_candidate_query_signed`
+// (`_hier_kernel_signed`).  out[k, p, c] = table[k*row_stride + pp[k, p] +
+// cp[k, c]] * (int)sp[k, p] * (int)sc[k, c], one thread per (row k, p, c)
+// lane: gridDim.y = w, x over the P x C lanes.  `table` may be a level view
+// of the concatenated hierarchy table (base offset folded into the pointer,
+// rows `row_stride` apart): the TPU wrapper's per-launch pad of the level
+// (a 268 MB copy at 4096^2 cells) is gone.
+// Bound: one 4-byte read per lane, from a window of one row per prefix, and
+// the coalesced int32 [w, P, C] write.  The design never materialises the
+// key grid; the sign product is two float loads and an integer multiply.
+__global__ void sk_hier_query_signed_kernel(const int32_t* __restrict__ table,
+                                            int64_t row_stride,
+                                            const int64_t* __restrict__ pp,
+                                            const float* __restrict__ sp, int64_t P,
+                                            const int64_t* __restrict__ cp,
+                                            const float* __restrict__ sc, int64_t C,
+                                            int32_t* __restrict__ out) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t k = blockIdx.y;
+  if (lane >= P * C) return;
+  const int64_t p = lane / C;
+  const int64_t c = lane - p * C;
+  const int32_t v = table[k * row_stride + pp[k * P + p] + cp[k * C + c]];
+  const int32_t s = (int32_t)sp[k * P + p] * (int32_t)sc[k * C + c];
+  out[k * P * C + lane] = (int32_t)((uint32_t)v * (uint32_t)s);
+}
+
+unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+int sk_sketch_update_signed(const IndexPlanC* plan, int32_t* table, int64_t h_pad, int32_t w,
+                            const int64_t* chunks, const int32_t* freqs, int64_t n,
+                            const int64_t* q, const int64_t* r, const int64_t* sq,
+                            const int64_t* sr, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_update_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, table, h_pad, chunks, freqs, n, q, r, sq, sr);
+  return (int)cudaGetLastError();
+}
+
+int sk_sketch_query_signed(const IndexPlanC* plan, const int32_t* table, int64_t h_pad,
+                           int32_t w, const int64_t* chunks, int64_t n, const int64_t* q,
+                           const int64_t* r, const int64_t* sq, const int64_t* sr,
+                           int32_t* out, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_query_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, table, h_pad, chunks, n, q, r, sq, sr, out);
+  return (int)cudaGetLastError();
+}
+
+int sk_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, int32_t* table,
+                          int64_t cols, int32_t w, const int64_t* chunks,
+                          const int32_t* freqs, int64_t n, const int64_t* q,
+                          const int64_t* r, const int64_t* sq, const int64_t* sr,
+                          void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_hier_update_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, *levels, table, cols, chunks, freqs, n, q, r, sq, sr);
+  return (int)cudaGetLastError();
+}
+
+int sk_hier_query_signed(const int32_t* table, int64_t row_stride, int32_t w,
+                         const int64_t* pp, const float* sp, int64_t P, const int64_t* cp,
+                         const float* sc, int64_t C, int32_t* out, void* stream) {
+  if (P <= 0 || C <= 0) return 0;
+  dim3 grid(blocks_for(P * C), (unsigned)w);
+  sk_hier_query_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      table, row_stride, pp, sp, P, cp, sc, C, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

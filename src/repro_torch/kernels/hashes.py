@@ -4,7 +4,9 @@ Port of ``repro/kernels/hashes.py``.  The CUDA twin of :func:`row_indices`
 is the ``composite_index`` device helper in ``csrc/hashes.cuh`` (K0), which
 every kernel inlines; the functions here are its plain PyTorch version and
 the static layout both sides read.  The signed-mode sign bits
-(``row_sign_bits``/``signs_from_bits``) arrive with the signed slice.
+(:func:`row_sign_bits` / :func:`all_sign_bits`, and ``signs_from_bits``,
+shared with core/countsketch.py) are K0s, whose CUDA twin is the
+``composite_sign_bits`` helper beside ``composite_index``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.countsketch import signs_from_bits  # noqa: F401
 from repro_torch.core.hashing import cw_hash
 from repro_torch.core.sketch import SketchSpec
 
@@ -65,3 +68,34 @@ def row_indices(plan: IndexPlan, chunks: torch.Tensor, q_row: torch.Tensor,
     chunks: int64[B, C]; q_row: int64[C]; r_row: int64[m].
     """
     return all_indices(plan, chunks, q_row[None], r_row[None])[0]
+
+
+def all_sign_bits(plan: IndexPlan, chunks: torch.Tensor, sq: torch.Tensor,
+                  sr: torch.Tensor) -> torch.Tensor:
+    """Packed cumulative sign-parity bits for every row at once: int64[w, B].
+
+    Bit L is the XOR of the CW-hash parities of groups 0..L under the sign
+    params (sq int64[w, C], sr int64[w, m]).  The parity is that of the
+    canonical residue in [0, P31) that :func:`cw_hash` returns, as the
+    reference's uint32 limbs give it.
+    """
+    bits = torch.zeros((sq.shape[0], chunks.shape[0]), dtype=torch.int64,
+                       device=chunks.device)
+    cum = torch.zeros_like(bits)
+    for j, cols in enumerate(plan.group_cols):
+        cols = list(cols)
+        h = cw_hash(chunks[None, :, cols], sq[:, None, cols], sr[:, j, None])
+        cum = cum ^ (h & 1)
+        bits = bits | (cum << j)
+    return bits
+
+
+def row_sign_bits(plan: IndexPlan, chunks: torch.Tensor, sq_row: torch.Tensor,
+                  sr_row: torch.Tensor) -> torch.Tensor:
+    """Packed cumulative sign-parity bits for ONE sketch row (signed mode):
+    int64[B], bit L the sign of the level-L prefix (the flat / finest sign
+    is the top group's bit).
+
+    chunks: int64[B, C]; sq_row: int64[C]; sr_row: int64[m].
+    """
+    return all_sign_bits(plan, chunks, sq_row[None], sr_row[None])[0]

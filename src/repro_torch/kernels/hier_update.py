@@ -1,4 +1,5 @@
-"""K3: fold one stream block into ALL hierarchy levels in a single launch.
+"""K3 and K8: fold one stream block into ALL hierarchy levels in a single
+launch.
 
 Port of ``repro/kernels/hier_update.py`` (``hier_update_pallas``).  Under
 the shared per-group hash family (core/hierarchy.py) the level indices
@@ -13,8 +14,15 @@ Hopper kernel (``sk_hier_update_kernel`` in ``csrc/sketch_kernels.cu``)
 runs one thread per (row, item), hashes once and adds with one int32
 ``atomicAdd`` per level.  :func:`hier_update_ref` is its plain PyTorch
 version; the wrapper runs it only for tensors on the CPU.  Both update the
-table in place (the reference donates it).  The signed and float32
-variants arrive with later slices.
+table in place (the reference donates it).
+
+K8 is the signed fold of ``hier_update_signed_pallas``: level L adds
+``s_L(x) * f``, where s_L is bit L of the packed cumulative sign parities.
+Its kernel (``sk_hier_update_signed_kernel`` in ``csrc/signed_kernels.cu``)
+hashes the finest index and the sign bits once per (row, item) and issues
+one int32 ``atomicAdd`` per level; :func:`hier_update_signed_ref` is its
+plain version.  The float32 table variants of K3 and K8 arrive with the
+training slice (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.hashes import IndexPlan, all_indices, make_plan
+from repro_torch.kernels.hashes import IndexPlan, all_indices, all_sign_bits, make_plan
 
 
 class HierPlan(NamedTuple):
@@ -124,6 +132,66 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
             ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
             cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
             r.data_ptr(), _cuda.stream_of(table))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return table
+
+
+def hier_update_signed_ref(hplan: HierPlan, table: torch.Tensor,
+                           chunks: torch.Tensor, freqs: torch.Tensor,
+                           q: torch.Tensor, r: torch.Tensor, sq: torch.Tensor,
+                           sr: torch.Tensor) -> torch.Tensor:
+    """Plain version over the same concatenated padded table, in place:
+    indices and sign bits hashed once per row, cascade divisions, per-level
+    signed scatter-adds.  The sign multiplies the frequency in the table's
+    dtype (int32 wraps as the kernel's atomics do)."""
+    idx_fine = all_indices(hplan.plan, chunks, q, r)          # int64[w, B]
+    bits = all_sign_bits(hplan.plan, chunks, sq, sr)          # int64[w, B]
+    w, cols = table.shape
+    rows = torch.arange(w, dtype=torch.int64, device=table.device)[:, None]
+    f = freqs.to(table.dtype)[None, :]
+    flat_table = table.view(-1)
+    for lvl, (off, div) in enumerate(zip(hplan.level_offsets, hplan.level_divs)):
+        sign = (1 - 2 * ((bits >> lvl) & 1)).to(table.dtype)
+        flat = (rows * cols + idx_fine // div + off).reshape(-1)
+        flat_table.index_add_(0, flat, (sign * f).reshape(-1))
+    return table
+
+
+def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
+                       chunks: torch.Tensor, freqs: torch.Tensor,
+                       q: torch.Tensor, r: torch.Tensor, sq: torch.Tensor,
+                       sr: torch.Tensor) -> torch.Tensor:
+    """Signed fold of one block into every level's table in ONE launch, in
+    place.
+
+    As :func:`hier_update`, plus the shared sign params sq int64[w, C] and
+    sr int64[w, m]; freqs may be negative.  CUDA tensors launch K8 (int32
+    tables only); CPU tensors take :func:`hier_update_signed_ref`.
+    """
+    w, cols = table.shape
+    if cols != hplan.padded_cols:
+        raise ValueError(
+            f"concatenated table has {cols} columns, plan expects "
+            f"{hplan.padded_cols}")
+    if not table.is_cuda:
+        return hier_update_signed_ref(hplan, table, chunks, freqs, q, r, sq, sr)
+    name = "hier_update_signed"
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r)
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, sq, sr)
+    freqs = freqs.to(torch.int32)
+    _cuda.require_on(table.device, name, freqs=freqs)
+    b = chunks.shape[0]
+    _cuda.require(tuple(freqs.shape) == (b,),
+                  f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
+    plan_c = _cuda.plan_struct(hplan.plan)
+    levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
+    lib = _cuda.library()
+    with torch.cuda.device(table.device):
+        rc = lib.sk_hier_update_signed(
+            ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
+            cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
+            r.data_ptr(), sq.data_ptr(), sr.data_ptr(), _cuda.stream_of(table))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return table

@@ -1,45 +1,57 @@
-"""Public wrappers around the sketch kernels, PyTorch port (linear mode).
+"""Public wrappers around the sketch kernels, PyTorch port (linear and
+signed modes).
 
 Port of ``repro/kernels/ops.py``.  These adapt the ``SketchSpec`` /
 ``HierarchySpec`` API to the kernels: chunk extraction, the padded table
 layout, sub-blocking, and state interop with the plain paths.  On CUDA
-tensors every fold and query launches a hand-written kernel (K1-K3 here;
-K4 through core/hierarchy.py); on CPU tensors the same calls run the
-kernels' plain versions.
+tensors every fold and query launches a hand-written kernel (K1-K3 and
+K6-K8 here; K4 and K9 through core/hierarchy.py and core/countsketch.py);
+on CPU tensors the same calls run the kernels' plain versions.
+
+``mode="signed"`` is the Count-Sketch variant (core/countsketch.py): the
+same fold with a per-group composite +-1 sign, a median-of-rows estimator
+on the query side, and signed (turnstile) frequencies allowed on int
+tables.  Signed tables are linear, so they merge cell-wise.
 
 The padded table width (``tile_h``) is kept although no CUDA kernel needs
 it: it makes the port's tables and ``state_dict`` arrays interchangeable
 with the reference's.  Blocks are not padded: zero-frequency pad rows are
 no-ops, so the reference's fixed-length padding changes nothing but the
-work done.  Conservative and signed modes arrive with later slices
-(ROADMAP items 9 and 10).
+work done.  Conservative mode arrives with a later slice (ROADMAP item
+9), the sharded fold with item 12.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import countsketch as cs
 from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
 from repro_torch.device import DeviceLike, as_index_tensor, numpy_dtype_name
 from repro_torch.kernels.hashes import make_plan
-from repro_torch.kernels.hier_update import hier_update, make_hier_plan
-from repro_torch.kernels.sketch_query import sketch_query
-from repro_torch.kernels.sketch_update import padded_table_size, sketch_update
+from repro_torch.kernels.hier_update import (
+    hier_update,
+    hier_update_signed,
+    make_hier_plan,
+)
+from repro_torch.kernels.sketch_query import sketch_query, sketch_query_signed
+from repro_torch.kernels.sketch_update import (
+    padded_table_size,
+    sketch_update,
+    sketch_update_signed,
+)
 
 _MAX_KERNEL_FREQ = 1 << 24  # the reference's two 12-bit limbs
 
 MODES = ("linear", "conservative", "signed")
-_LATER_MODES = {"conservative": "ROADMAP item 9", "signed": "ROADMAP item 10"}
 
 
-def _require_linear_mode(mode: str, what: str) -> None:
-    if mode in _LATER_MODES:
+def _require_ported_mode(mode: str, what: str) -> None:
+    if mode == "conservative":
         raise NotImplementedError(
-            f"{what} mode={mode!r} is not ported yet ({_LATER_MODES[mode]})")
-    if mode != "linear":
+            f"{what} mode='conservative' is not ported yet (ROADMAP item 9)")
+    if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
 
@@ -68,32 +80,51 @@ def check_linear_kernel_freqs(freqs: np.ndarray, table_dtype) -> None:
             "use the core.sketch path (or a float32 table)")
 
 
-def _params_numpy(params: sk.SketchParams):
-    return (params.q.cpu().numpy().astype(np.uint32),
-            params.r.cpu().numpy().astype(np.uint32))
+def check_signed_kernel_freqs(freqs: np.ndarray, table_dtype) -> None:
+    """Signed-mode frequency guard: negatives are the point (turnstile), so
+    only the reference's limb-split magnitude bound applies.  int32 atomics
+    need no limb split, but the port keeps the reference's contract and
+    message."""
+    if freqs.size == 0 or not _is_integer(table_dtype):
+        return
+    if np.abs(freqs).max() >= _MAX_KERNEL_FREQ:
+        raise ValueError(
+            "per-arrival |frequency| >= 2^24 overflows the int-table "
+            "limb split: use the core.countsketch path")
+
+
+def _as_uint32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.uint32)
 
 
 class KernelSketch:
-    """Flat sketch whose table lives padded for the kernels (K1/K2).
+    """Flat sketch whose table lives padded for the kernels (K1/K2, or
+    K6/K7 in signed mode).
 
-    ``params``: a ``torch.Generator`` or a ``(q, r)`` pair (numpy or
-    tensors), in place of the reference's jax key.  ``block_b`` is the
-    most rows one launch folds.
+    ``params``: a ``torch.Generator`` or, in place of the reference's jax
+    key, the arrays of a draw -- ``(q, r)`` in linear mode, ``(q, r,
+    sign_q, sign_r)`` (or a ``CountSketchParams``) in signed mode, numpy or
+    tensors.  ``block_b`` is the most rows one launch folds.
     """
 
     def __init__(self, spec: sk.SketchSpec, params, *, tile_h: int = 512,
                  block_b: int = 1 << 16, dtype=torch.int32,
                  device: DeviceLike = None, mode: str = "linear"):
-        _require_linear_mode(mode, "KernelSketch")
+        _require_ported_mode(mode, "KernelSketch")
         self.spec = spec
         self.plan = make_plan(spec)
-        self.params = sk.resolve_params(spec, params, device)
+        self.mode = mode
+        if mode == "signed":
+            self.cs_params = cs.resolve_params(spec, params, device)
+            self.params = self.cs_params.base
+        else:
+            self.cs_params = None
+            self.params = sk.resolve_params(spec, params, device)
         self.tile_h = int(tile_h)
         self.block_b = int(block_b)
         self.h_pad = padded_table_size(spec.table_size, tile_h)
         self.table = torch.zeros((spec.width, self.h_pad), dtype=dtype,
                                  device=self.params.q.device)
-        self.mode = mode
 
     @property
     def device(self) -> torch.device:
@@ -103,28 +134,64 @@ class KernelSketch:
     def update(self, items, freqs) -> None:
         items = np.asarray(items, dtype=np.uint32)
         freqs = np.asarray(freqs)
-        check_linear_kernel_freqs(freqs, self.table.dtype)
+        if self.mode == "signed":
+            check_signed_kernel_freqs(freqs, self.table.dtype)
+        else:
+            check_linear_kernel_freqs(freqs, self.table.dtype)
         if items.shape[0] == 0:
             return
         chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
         f = sk.as_freqs(freqs, self.device).to(self.table.dtype)
+        q, r = self.params
         for s in range(0, items.shape[0], self.block_b):
-            sketch_update(self.plan, self.table, chunks[s : s + self.block_b],
-                          f[s : s + self.block_b], self.params.q, self.params.r)
+            blk_c, blk_f = chunks[s : s + self.block_b], f[s : s + self.block_b]
+            if self.mode == "signed":
+                sketch_update_signed(self.plan, self.table, blk_c, blk_f, q, r,
+                                     self.cs_params.sign_q, self.cs_params.sign_r)
+            else:
+                sketch_update(self.plan, self.table, blk_c, blk_f, q, r)
 
     def query(self, items) -> np.ndarray:
-        """Point estimates: min over rows, int32[Q]."""
+        """Point estimates: min over rows, int32[Q] (linear), or the
+        unbiased median over signed rows, float32[Q] (signed mode)."""
+        if self.mode == "signed":
+            return cs.median_rows(self._signed_rows(items)).cpu().numpy()
         items = np.asarray(items, dtype=np.uint32)
         chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
         est = sketch_query(self.plan, self.table, chunks, self.params.q,
                            self.params.r)
         return est.cpu().numpy()
 
+    def query_rows(self, items) -> np.ndarray:
+        """Signed mode only: per-row signed estimates [w, Q] (int32 on
+        int32 tables), the medians' raw material."""
+        if self.mode != "signed":
+            raise ValueError("query_rows is the signed-mode estimator; "
+                             "linear/conservative sketches use query()")
+        return self._signed_rows(items).cpu().numpy()
+
+    def _signed_rows(self, items) -> torch.Tensor:
+        items = np.asarray(items, dtype=np.uint32)
+        chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
+        return sketch_query_signed(self.plan, self.table, chunks, self.params.q,
+                                   self.params.r, self.cs_params.sign_q,
+                                   self.cs_params.sign_r)
+
+    def sharded_update(self, *args, **kwargs) -> None:
+        """The reference's shard_map/psum fold; not ported yet."""
+        raise NotImplementedError(
+            "KernelSketch.sharded_update is not ported yet (ROADMAP item 12, "
+            "sharding)")
+
     # -- interop ------------------------------------------------------------
     def merge(self, other: "KernelSketch") -> None:
-        """Cell-wise merge (cross-shard fold)."""
+        """Cell-wise merge (cross-shard fold); linear and signed tables are
+        both linear in the stream."""
         if self.mode != other.mode:
-            raise ValueError("merge requires identical modes")
+            raise ValueError(
+                "merge requires identical modes (a min-estimated and a "
+                "median-estimated table are different objects even though "
+                "both are linear)")
         if self.spec != other.spec or self.h_pad != other.h_pad:
             raise ValueError("merge requires identical specs and padding")
         if self.table.dtype != other.table.dtype:
@@ -135,12 +202,38 @@ class KernelSketch:
                 and torch.equal(self.params.r, other.params.r.to(self.device))):
             raise ValueError(
                 "merge requires identical hash params (same spec and key)")
+        if self.mode == "signed" and not (
+                torch.equal(self.cs_params.sign_q,
+                            other.cs_params.sign_q.to(self.device))
+                and torch.equal(self.cs_params.sign_r,
+                                other.cs_params.sign_r.to(self.device))):
+            raise ValueError(
+                "merge requires identical sign-hash params (same spec "
+                "and key)")
         self.table = self.table + other.table.to(self.device)
 
     def state(self) -> sk.SketchState:
-        """Unpadded SketchState view (for merge with the plain path)."""
+        """Unpadded SketchState view (for merge with the plain path).
+
+        Linear mode only: signed tables carry sign params a SketchState
+        cannot hold (:meth:`cs_state`)."""
+        if self.mode != "linear":
+            raise ValueError(
+                "state() feeds the min-estimated SketchState cell-wise merge "
+                "path; conservative tables must not enter it and signed "
+                "tables carry sign params it cannot hold -- use cs_state() "
+                "(signed) or table_view()/query()")
         return sk.SketchState(params=self.params,
                               table=self.table[:, : self.spec.table_size])
+
+    def cs_state(self) -> cs.CountSketchState:
+        """Unpadded CountSketchState view (signed mode's merge/reference
+        currency, the analogue of :meth:`state`)."""
+        if self.mode != "signed":
+            raise ValueError("cs_state() is the signed-mode view; "
+                             "linear sketches use state()")
+        return cs.CountSketchState(params=self.cs_params,
+                                   table=self.table[:, : self.spec.table_size])
 
     def table_view(self) -> np.ndarray:
         """Read-only unpadded table copy (inspection/tests)."""
@@ -155,12 +248,17 @@ class KernelSketch:
              ).encode(), dtype=np.uint8).copy()
 
     def state_dict(self) -> dict:
-        """Padded table + hash params as ``{key: ndarray}``; loads into the
+        """Padded table + every hash param the mode uses as ``{key:
+        ndarray}`` (sign params too in signed mode); loads into the
         reference's ``KernelSketch.load_state_dict`` and back."""
-        q, r = _params_numpy(self.params)
-        return {"meta.fingerprint": self._fingerprint(),
-                "table": self.table.cpu().numpy(),
-                "params.q": q, "params.r": r}
+        out = {"meta.fingerprint": self._fingerprint(),
+               "table": self.table.cpu().numpy(),
+               "params.q": _as_uint32(self.params.q),
+               "params.r": _as_uint32(self.params.r)}
+        if self.mode == "signed":
+            out["params.sign_q"] = _as_uint32(self.cs_params.sign_q)
+            out["params.sign_r"] = _as_uint32(self.cs_params.sign_r)
+        return out
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore a state saved by this class or by the reference's
@@ -173,34 +271,49 @@ class KernelSketch:
                 f"{bytes(got).decode(errors='replace')!r}, this sketch is "
                 f"{bytes(fp).decode(errors='replace')!r}")
         self.table = torch.from_numpy(np.array(sd["table"])).to(self.device)
-        self.params = sk.resolve_params(
-            self.spec, (sd["params.q"], sd["params.r"]), self.device)
+        if self.mode == "signed":
+            self.cs_params = cs.resolve_params(
+                self.spec, (sd["params.q"], sd["params.r"], sd["params.sign_q"],
+                            sd["params.sign_r"]), self.device)
+            self.params = self.cs_params.base
+        else:
+            self.params = sk.resolve_params(
+                self.spec, (sd["params.q"], sd["params.r"]), self.device)
 
 
 class KernelHierarchy:
     """Hierarchy whose level tables live concatenated + padded for the fused
-    single-launch update (K3, kernels/hier_update.py).
+    single-launch update (K3, or K8 in signed mode; kernels/hier_update.py).
 
     Every stream block is folded into ALL levels by one launch against the
     ``[w, sum_L h_L_pad]`` table, hashing each item once per row.
-    :meth:`state` hands out the standard ``HierarchyState`` view (per level:
+    :meth:`state` (linear) and :meth:`cs_state` (signed) hand out the
+    standard ``HierarchyState`` / ``CountSketchHierarchy`` views (per level:
     a strided view of the table + prefix-sliced shared params), cached until
-    the next ingest, so the descent runs unchanged on it -- K4 reads the
-    level views in place.
+    the next ingest, so the descent runs unchanged on them -- K4 and K9 read
+    the level views in place.
+
+    ``params``: a ``torch.Generator`` or the finest level's arrays, ``(q,
+    r)`` in linear mode and ``(q, r, sign_q, sign_r)`` in signed mode.
     """
 
     def __init__(self, hspec, params, *, tile_h: int = 512,
                  block_b: int = 1 << 16, dtype=torch.int32,
                  device: DeviceLike = None, mode: str = "linear"):
-        _require_linear_mode(mode, "KernelHierarchy")
+        _require_ported_mode(mode, "KernelHierarchy")
         self.hspec = hspec
         self.hplan = make_hier_plan(hspec, tile_h)
         self.mode = mode
-        self.params = sk.resolve_params(hspec.levels[-1], params, device)
+        if mode == "signed":
+            self.cs_params = cs.resolve_params(hspec.levels[-1], params, device)
+            self.params = self.cs_params.base
+        else:
+            self.cs_params = None
+            self.params = sk.resolve_params(hspec.levels[-1], params, device)
         self.block_b = int(block_b)
         self.table = torch.zeros((hspec.base.width, self.hplan.padded_cols),
                                  dtype=dtype, device=self.params.q.device)
-        self._state_cache: Optional[hh.HierarchyState] = None
+        self._state_cache = None
 
     @classmethod
     def from_state(cls, hspec, state, *, tile_h: int = 512,
@@ -210,7 +323,8 @@ class KernelHierarchy:
         self = cls.__new__(cls)
         self.hspec = hspec
         self.hplan = make_hier_plan(hspec, tile_h)
-        self.mode = "linear"
+        self.mode = "linear"   # HierarchyState carries no sign params
+        self.cs_params = None
         self.block_b = int(block_b)
         self._state_cache = None
         self.load_state(state)
@@ -222,8 +336,14 @@ class KernelHierarchy:
 
         The state must carry the shared-prefix params of ``init_hierarchy``:
         the fused kernel hashes with the finest params only and derives
-        every level by division.
+        every level by division.  Linear mode only: a HierarchyState has
+        no sign params.
         """
+        if self.mode != "linear":
+            raise ValueError(
+                "load_state() takes a (sign-less) HierarchyState and is "
+                "linear-mode only; signed hierarchies are built by ingest "
+                "from their own key")
         if not hh.params_share_prefix(state):
             raise ValueError(
                 "KernelHierarchy requires the shared per-group hash family "
@@ -240,16 +360,39 @@ class KernelHierarchy:
         self.table = torch.cat(parts, dim=1)
         self._state_cache = None
 
+    def _level_views(self):
+        return tuple(self.table[:, off : off + h_l]
+                     for off, h_l in zip(self.hplan.level_offsets,
+                                         self.hplan.level_sizes))
+
     def state(self) -> hh.HierarchyState:
-        """HierarchyState view (sliced, unpadded); cached until next ingest."""
+        """HierarchyState view (sliced, unpadded); cached until next ingest.
+
+        Linear mode only: HierarchyState is the min-estimated descent/merge
+        currency and carries no sign params -- the signed view is
+        :meth:`cs_state`."""
+        if self.mode != "linear":
+            raise ValueError(
+                "state() is the linear (Count-Min) hierarchy view; signed "
+                "hierarchies use cs_state()")
         if self._state_cache is None:
-            states = []
-            for l, (off, h_l) in enumerate(zip(self.hplan.level_offsets,
-                                               self.hplan.level_sizes)):
-                states.append(sk.SketchState(
-                    params=hh.level_params(self.hspec, self.params, l),
-                    table=self.table[:, off : off + h_l]))
-            self._state_cache = hh.HierarchyState(states=tuple(states))
+            self._state_cache = hh.HierarchyState(states=tuple(
+                sk.SketchState(params=hh.level_params(self.hspec, self.params, l),
+                               table=view)
+                for l, view in enumerate(self._level_views())))
+        return self._state_cache
+
+    def cs_state(self) -> cs.CountSketchHierarchy:
+        """CountSketchHierarchy view (per level a strided view of the table,
+        no copy); cached until the next ingest -- feeds the signed
+        candidate queries and threshold descent
+        (core.countsketch.candidate_estimates / find_heavy_hitters)."""
+        if self.mode != "signed":
+            raise ValueError("cs_state() is the signed hierarchy view; "
+                             "linear hierarchies use state()")
+        if self._state_cache is None:
+            self._state_cache = cs.CountSketchHierarchy(
+                params=self.cs_params, tables=self._level_views())
         return self._state_cache
 
     # -- ingest --------------------------------------------------------------
@@ -257,7 +400,10 @@ class KernelHierarchy:
         """Fold a weighted block: one fused launch per ``block_b`` rows."""
         items = np.asarray(items, dtype=np.uint32)
         freqs = np.asarray(freqs)
-        check_linear_kernel_freqs(freqs, self.table.dtype)
+        if self.mode == "signed":
+            check_signed_kernel_freqs(freqs, self.table.dtype)
+        else:
+            check_linear_kernel_freqs(freqs, self.table.dtype)
         if items.shape[0] == 0:
             return
         device = self.table.device
@@ -267,7 +413,12 @@ class KernelHierarchy:
                                          as_index_tensor(items, device))
         chunks = schema.module_chunks(ordered)
         f = sk.as_freqs(freqs, device).to(self.table.dtype)
+        q, r = self.params
         for s in range(0, items.shape[0], self.block_b):
-            hier_update(self.hplan, self.table, chunks[s : s + self.block_b],
-                        f[s : s + self.block_b], self.params.q, self.params.r)
+            blk_c, blk_f = chunks[s : s + self.block_b], f[s : s + self.block_b]
+            if self.mode == "signed":
+                hier_update_signed(self.hplan, self.table, blk_c, blk_f, q, r,
+                                   self.cs_params.sign_q, self.cs_params.sign_r)
+            else:
+                hier_update(self.hplan, self.table, blk_c, blk_f, q, r)
         self._state_cache = None

@@ -1,12 +1,19 @@
-"""K1: fold a stream block into a flat sketch table.
+"""K1 and K6: fold a stream block into a flat sketch table.
 
 Port of ``repro/kernels/sketch_update.py`` (``sketch_update_pallas``).  The
 TPU kernel turns the scatter into one-hot x frequency MXU matmuls with
 12-bit frequency limbs; on Hopper the kernel (``sk_update_kernel`` in
 ``csrc/sketch_kernels.cu``) hashes each (row, key) once and adds with one
 exact int32 ``atomicAdd``.  :func:`sketch_update_ref` is its plain PyTorch
-version; the wrapper runs it only for tensors on the CPU.  The signed
-variant and the float32 table variant arrive with later slices.
+version; the wrapper runs it only for tensors on the CPU.
+
+K6 is the signed (Count-Sketch) fold of ``sketch_update_signed_pallas``:
+``cell += s_k(x) * f`` with f of either sign.  Its kernel
+(``sk_update_signed_kernel`` in ``csrc/signed_kernels.cu``) hashes the cell
+and the packed sign bits once per (row, key) and adds the signed value with
+one int32 ``atomicAdd``; :func:`sketch_update_signed_ref` is its plain
+version.  The float32 table variants of both kernels arrive with the
+training slice (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.hashes import IndexPlan, all_indices
+from repro_torch.kernels.hashes import IndexPlan, all_indices, all_sign_bits
 
 
 def padded_table_size(h: int, tile_h: int) -> int:
@@ -62,6 +69,57 @@ def sketch_update(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
             ctypes.byref(plan_c), table.data_ptr(), h_pad, w,
             chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(), r.data_ptr(),
             _cuda.stream_of(table))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return table
+
+
+def sketch_update_signed_ref(plan: IndexPlan, table: torch.Tensor,
+                             chunks: torch.Tensor, freqs: torch.Tensor,
+                             q: torch.Tensor, r: torch.Tensor, sq: torch.Tensor,
+                             sr: torch.Tensor) -> torch.Tensor:
+    """Plain version: signed scatter-add over the (padded) table, in place.
+    The sign multiplies the frequency in the table's dtype (int32 wraps as
+    the kernel's atomics do)."""
+    w, h_pad = table.shape
+    idx = all_indices(plan, chunks, q, r)                     # [w, B]
+    bits = all_sign_bits(plan, chunks, sq, sr)
+    sign = 1 - 2 * ((bits >> (len(plan.group_cols) - 1)) & 1)
+    vals = sign.to(table.dtype) * freqs.to(table.dtype)[None, :]
+    rows = torch.arange(w, dtype=torch.int64, device=table.device)[:, None]
+    table.view(-1).index_add_(0, (rows * h_pad + idx).reshape(-1), vals.reshape(-1))
+    return table
+
+
+def sketch_update_signed(plan: IndexPlan, table: torch.Tensor,
+                         chunks: torch.Tensor, freqs: torch.Tensor,
+                         q: torch.Tensor, r: torch.Tensor, sq: torch.Tensor,
+                         sr: torch.Tensor) -> torch.Tensor:
+    """Signed fold of one block into ``table`` ([w, h_pad]) in place.
+
+    As :func:`sketch_update`, plus the sign params sq int64[w, C] and sr
+    int64[w, m]; freqs may be negative.  CUDA tensors launch K6 (int32
+    tables only); CPU tensors take :func:`sketch_update_signed_ref`.
+    """
+    if not table.is_cuda:
+        return sketch_update_signed_ref(plan, table, chunks, freqs, q, r, sq, sr)
+    name = "sketch_update_signed"
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
+    _cuda.require_hash_inputs(name, plan, table, chunks, sq, sr)
+    freqs = freqs.to(torch.int32)
+    _cuda.require_on(table.device, name, freqs=freqs)
+    w, h_pad = table.shape
+    b = chunks.shape[0]
+    _cuda.require(tuple(freqs.shape) == (b,) and plan.table_size <= h_pad,
+                  f"{name}: freqs {tuple(freqs.shape)} or table width {h_pad} "
+                  "does not match the block and plan")
+    plan_c = _cuda.plan_struct(plan)
+    lib = _cuda.library()
+    with torch.cuda.device(table.device):
+        rc = lib.sk_sketch_update_signed(
+            ctypes.byref(plan_c), table.data_ptr(), h_pad, w,
+            chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(), r.data_ptr(),
+            sq.data_ptr(), sr.data_ptr(), _cuda.stream_of(table))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return table

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1-K4, K6-K9) against their plain PyTorch
+versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
 on a machine that has one).  Inputs are made with numpy from a seed; the
@@ -6,12 +7,14 @@ tables are int32, so the tolerance is exact equality.  Each kernel is
 compared with its plain version on the same card and the same inputs, at
 small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
-multiples, int32 wraparound and strided level views.
+multiples, int32 wraparound, negative (turnstile) frequencies and strided
+level views.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import countsketch as cs
 from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
 from repro_torch.core.hashing import KeySchema, draw_hash_params_np
@@ -233,3 +236,170 @@ def test_endpoint_kernel_paths_equal_plain_paths_on_card(cuda):
     np.testing.assert_array_equal(
         ks.query(st.items[:500]),
         sk.query(spec, plain, st.items[:500]).cpu().numpy())
+
+
+def _signed_params(spec, seed, device):
+    rng = np.random.default_rng(seed)
+    arrays = [draw_hash_params_np(rng, shape) for shape in
+              [(spec.width, spec.schema.total_chunks), (spec.width, spec.n_groups)] * 2]
+    return cs.resolve_params(spec, arrays, device)
+
+
+def _signed_block(hspec, n, seed):
+    items, freqs = _block(hspec, n, seed)
+    freqs[::3] *= -1                              # turnstile deletions
+    return items, freqs
+
+
+def _chunks(spec, items, device):
+    return spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(device))
+
+
+def test_k6_k7_signed_flat_sketch_match_plain(cuda):
+    spec = _hspec().levels[-1]
+    plan = make_plan(spec)
+    p = _signed_params(spec, 20, cuda)
+    (q, r), s_q, s_r = p
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    items, freqs = _signed_block(_hspec(), 3000, 21)
+    chunks = _chunks(spec, items, cuda)
+    f = torch.from_numpy(freqs).to(cuda)
+    base = _random_table((spec.width, h_pad), 22, cuda)
+    n0 = _cuda.LAUNCHES["sketch_update_signed"]
+    got = su.sketch_update_signed(plan, base.clone(), chunks, f, q, r, s_q, s_r)
+    want = su.sketch_update_signed_ref(plan, base.clone(), chunks, f, q, r, s_q, s_r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sketch_update_signed"] == n0 + 1
+    assert torch.equal(got, want)
+
+    n0 = _cuda.LAUNCHES["sketch_query_signed"]
+    rows = sq.sketch_query_signed(plan, got, chunks, q, r, s_q, s_r)
+    assert _cuda.LAUNCHES["sketch_query_signed"] == n0 + 1
+    assert rows.dtype == torch.int32 and rows.shape == (spec.width, 3000)
+    assert torch.equal(rows, sq.sketch_query_signed_ref(plan, got, chunks, q, r, s_q, s_r))
+
+
+def test_k8_signed_hierarchy_update_matches_plain(cuda):
+    hspec = _hspec(w=4)
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 23, cuda)
+    table = _random_table((4, hplan.padded_cols), 24, cuda)
+    got, want = table.clone(), table.clone()
+    for seed in (25, 26):
+        items, freqs = _signed_block(hspec, 2000, seed)
+        chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+        f = torch.from_numpy(freqs).to(cuda)
+        hu.hier_update_signed(hplan, got, chunks, f, q, r, s_q, s_r)
+        hu.hier_update_signed_ref(hplan, want, chunks, f, q, r, s_q, s_r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k6_k8_int32_wraparound_matches_plain(cuda):
+    hspec = _hspec(w=2)
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 27, cuda)
+    items, _ = _block(hspec, 1500, 28)
+    freqs = np.full(1500, (1 << 24) - 1, np.int32)
+    freqs[::2] *= -1
+    f = torch.from_numpy(freqs).to(cuda)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    for lo, hi in (((1 << 31) - (1 << 24), (1 << 31) - 1),
+                   (-(1 << 31), -(1 << 31) + (1 << 24))):
+        table = _random_table((2, hplan.padded_cols), 29, cuda, lo=lo, hi=hi)
+        got = hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
+        want = hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
+        assert torch.equal(got, want)
+        assert bool(((got > 0) != (table > 0)).any())    # it did wrap
+        plan = hplan.plan
+        flat = table[:, : plan.table_size].contiguous()
+        assert torch.equal(su.sketch_update_signed(plan, flat.clone(), chunks, f, q, r, s_q, s_r),
+                           su.sketch_update_signed_ref(plan, flat.clone(), chunks, f, q, r,
+                                                       s_q, s_r))
+
+
+def test_k9_signed_grid_on_level_views_matches_plain(cuda):
+    hspec = _hspec()
+    kh = KernelHierarchy(hspec, _signed_params(hspec.levels[-1], 30, cuda), tile_h=128,
+                          device=cuda, mode="signed")
+    kh.table.copy_(_random_table(tuple(kh.table.shape), 31, cuda))
+    kh._state_cache = None
+    state = kh.cs_state()
+    rng = np.random.default_rng(32)
+    for level in range(hspec.n_levels):
+        view = state.tables[level]
+        mods = hh.level_modules(hspec.base, level - 1) if level else ()
+        prefixes = (np.stack([rng.integers(0, hspec.base.schema.domains[m], 37,
+                                           dtype=np.uint64).astype(np.uint32)
+                              for m in mods], axis=1)
+                    if level else np.zeros((1, 0), np.uint32))
+        values = np.stack([rng.integers(0, hspec.base.schema.domains[m], 53,
+                                        dtype=np.uint64).astype(np.uint32)
+                           for m in hspec.base.partition[level]], axis=1)
+        pp, cp, sp, sc = cs.candidate_signed_partials(hspec, state.params, level,
+                                                      prefixes, values)
+        n0 = _cuda.LAUNCHES["hier_query_signed"]
+        got = hq.hier_candidate_query_signed(view, pp, cp, sp, sc)
+        assert _cuda.LAUNCHES["hier_query_signed"] == n0 + 1
+        assert got.dtype == torch.int32 and got.shape == (3, pp.shape[1], 53)
+        assert torch.equal(got.to(torch.float32),
+                           hq.hier_candidate_query_signed_ref(view, pp, cp, sp, sc))
+        for max_batch in (None, 200):
+            np.testing.assert_array_equal(
+                cs.candidate_estimates(hspec, state, level, prefixes, values,
+                                       use_kernel=True, max_batch=max_batch),
+                cs.candidate_estimates(hspec, state, level, prefixes, values,
+                                       max_batch=max_batch))
+
+
+def test_signed_float32_tables_on_the_card_raise_item_14(cuda):
+    hspec = _hspec()
+    spec = hspec.levels[-1]
+    params = _signed_params(spec, 33, cuda)
+    items, freqs = _signed_block(hspec, 64, 34)
+    ks = KernelSketch(spec, params, dtype=torch.float32, device=cuda, mode="signed")
+    kh = KernelHierarchy(hspec, params, dtype=torch.float32, device=cuda, mode="signed")
+    before = dict(_cuda.LAUNCHES)
+    for call in (lambda: ks.update(items, freqs), lambda: ks.query_rows(items),
+                 lambda: kh.update(items, freqs)):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            call()
+    state = kh.cs_state()
+    values = items[:5, list(hspec.base.partition[0])]
+    with pytest.raises(NotImplementedError, match="item 14"):
+        cs.candidate_estimates(hspec, state, 0, np.zeros((1, 0), np.uint32), values,
+                               use_kernel=True)
+    assert dict(_cuda.LAUNCHES) == before
+
+
+def test_signed_path_kernel_equals_plain_on_card(cuda):
+    hspec = _hspec(w=4)
+    params = _signed_params(hspec.levels[-1], 35, cuda)
+    kh = KernelHierarchy(hspec, params, tile_h=128, block_b=700, device=cuda,
+                         mode="signed")
+    plain = cs.init_hierarchy(hspec, params, dtype=torch.int32, device=cuda)
+    ks = KernelSketch(hspec.base, params, device=cuda, mode="signed")
+    flat = cs.init_state(hspec.base, params, dtype=torch.int32, device=cuda)
+    _cuda.reset_launches()
+    for seed in (36, 37):
+        items, freqs = _signed_block(hspec, 2000, seed)
+        kh.update(items, freqs)
+        ks.update(items, freqs)
+        plain = cs.hier_update(hspec, plain, items, freqs)
+        flat = cs.update(hspec.base, flat, items, freqs)
+    for a, b in zip(kh.cs_state().tables, plain.tables):
+        assert torch.equal(a, b)
+    assert torch.equal(ks.cs_state().table, flat.table)
+    rows, med = cs.query_rows(hspec.base, flat, items[:300])
+    assert torch.equal(torch.from_numpy(ks.query_rows(items[:300])).float(), rows.cpu())
+    np.testing.assert_array_equal(ks.query(items[:300]), med.cpu().numpy())
+    cands = [np.unique(items[:, list(g)], axis=0) for g in hspec.base.partition]
+    thr = 0.002 * np.abs(freqs).sum()
+    got = cs.find_heavy_hitters(hspec, kh.cs_state(), thr, cands, use_kernel=True,
+                                max_batch=4096)
+    want = cs.find_heavy_hitters(hspec, plain, thr, cands, max_batch=4096)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert all(_cuda.LAUNCHES[k] > 0 for k in (
+        "sketch_update_signed", "sketch_query_signed", "hier_update_signed",
+        "hier_query_signed"))

@@ -65,6 +65,7 @@ def test_no_source_imports_jax_or_the_reference(path):
 
 def _entry_points():
     from repro_torch import interop
+    from repro_torch.core import countsketch as cs
     from repro_torch.core import hierarchy as hh
     from repro_torch.core import sketch as sk
     from repro_torch.core.hashing import KeySchema
@@ -80,6 +81,9 @@ def _entry_points():
         "SketchTopKEndpoint": lambda: SketchTopKEndpoint(spec, gen),
         "KernelSketch": lambda: KernelSketch(spec, gen),
         "KernelHierarchy": lambda: KernelHierarchy(hspec, gen),
+        "KernelSketch_signed": lambda: KernelSketch(spec, gen, mode="signed"),
+        "KernelHierarchy_signed": lambda: KernelHierarchy(hspec, gen, mode="signed"),
+        "countsketch.init_hierarchy": lambda: cs.init_hierarchy(hspec, gen),
         "init_hierarchy": lambda: hh.init_hierarchy(hspec, gen),
         "build_hierarchy": lambda: hh.build_hierarchy(hspec, gen, items, freqs),
         "init_state": lambda: sk.init_state(spec, gen),
@@ -91,7 +95,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", sorted(
     ["SketchTopKEndpoint", "KernelSketch", "KernelHierarchy", "init_hierarchy",
-     "build_hierarchy", "init_state", "build_sketch", "params_from_numpy"]))
+     "build_hierarchy", "init_state", "build_sketch", "params_from_numpy",
+     "KernelSketch_signed", "KernelHierarchy_signed", "countsketch.init_hierarchy"]))
 def test_entry_points_without_a_card_raise(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -172,9 +172,12 @@ def test_kernel_sketch_guards_match_reference():
         assert str(got.value) == str(want.value)
     assert int(ks.table.abs().sum()) == 0              # refused = untouched
     pops.check_linear_kernel_freqs(np.array([-5, 1 << 30]), torch.float32)
-    for mode, item in (("conservative", "item 9"), ("signed", "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            pops.KernelSketch(pspec, (pp.q, pp.r), device="cpu", mode=mode)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pops.KernelSketch(pspec, (pp.q, pp.r), device="cpu", mode="conservative")
+    signed = pops.KernelSketch(pspec, (pp.q, pp.r, pp.q, pp.r), device="cpu",
+                               mode="signed")
+    signed.update(items, np.array([1, 2, -3, 4]))      # turnstile: accepted
+    assert signed.mode == "signed" and int(signed.table.min()) < 0
     with pytest.raises(ValueError, match="mode must be one of"):
         pops.KernelSketch(pspec, (pp.q, pp.r), device="cpu", mode="bogus")
 
