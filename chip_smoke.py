@@ -27,15 +27,31 @@ Phases, any failure of which exits non-zero:
    for bit (the tables equal those of the kept half alone), and tables and
    answers must equal the plain path's on the card; recall and precision
    against the exact answer are printed, not asserted (the median descent
-   is probabilistic);
-3. hold each kernel (K1-K4, K6-K9) against its plain version on the card
-   at the shapes its path gives it (int32: bit-identical);
+   is probabilistic).  Then the accuracy path (the paper's pipeline at
+   ``examples/quickstart.py``'s h = 4,096, w = 5): a 2% sample, Thm-3
+   ranges and Thm-4/5 selection (``choose_sketch``), then count-min,
+   equal-sketch, mod-sketch and the selected spec each built linearly (K1)
+   and conservatively (K5, shared-memory route) over the whole stream and
+   queried through K2 on the top-500 and a random 500; every query must
+   satisfy true <= conservative <= linear and every conservative cell must
+   be <= its linear cell; the observed-error table is printed.  Then
+   conservative heavy hitters (``mode="conservative"``) on the main path's
+   spec: the endpoint and engine over the whole stream (K5i over both
+   levels, level 1 on the global-memory route; K4 for the descent) and a
+   flat conservative ``KernelSketch`` (K5, global route); no false
+   negatives, the answer a subset of the linear main path's at the same
+   threshold, and every table <= its linear twin cell by cell;
+3. hold each kernel (K1-K9, K5i) against its plain version on the card
+   at the shapes its path gives it (int32: bit-identical), K5 on both
+   residency routes;
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
-   torch.profiler; set both beside the least time the card could take;
-5. drive the main path and the turnstile path once more under
-   torch.profiler for the device's busy and idle share.
+   torch.profiler; set both beside the least time the card could take,
+   and K5/K5i also beside their chain bound (B dependent steps of one
+   table load and a warp minimum, each step measured by a probe kernel);
+5. drive the main path, the turnstile path and the conservative path once
+   more under torch.profiler for the device's busy and idle share.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -59,6 +75,7 @@ from repro_torch.core import countsketch as cs  # noqa: E402
 from repro_torch.core import hierarchy as hh  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import KeySchema, draw_hash_params_np  # noqa: E402
+from repro_torch.core.selection import choose_sketch, seeded_draw  # noqa: E402
 from repro_torch.core.summary import SpaceSaving  # noqa: E402
 from repro_torch.device import as_index_tensor  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
@@ -66,6 +83,7 @@ from repro_torch.kernels import hier_query as hq  # noqa: E402
 from repro_torch.kernels import hier_update as hu  # noqa: E402
 from repro_torch.kernels import sketch_query as sq  # noqa: E402
 from repro_torch.kernels import sketch_update as su  # noqa: E402
+from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
 from repro_torch.serving.sketch_engine import (  # noqa: E402
@@ -75,6 +93,7 @@ from repro_torch.serving.sketch_engine import (  # noqa: E402
 from repro_torch.streams import (  # noqa: E402
     exact_heavy_hitters,
     group_candidates,
+    observed_error,
     zipf_graph_stream,
 )
 
@@ -95,6 +114,8 @@ POOL = 4096
 # 10x the reference's own "twitter-like" default (streams/synthetic.py)
 STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
               n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)
+# the accuracy path: examples/quickstart.py's table, sample and query sets
+H_ACC, W_ACC, SAMPLE, N_QUERIES = 4096, 5, 0.02, 500
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -107,6 +128,10 @@ KERNELS = {
     "sketch_query_signed": ("signed_kernels.cu", "src/repro/kernels/sketch_query.py:114"),
     "hier_update_signed": ("signed_kernels.cu", "src/repro/kernels/hier_update.py:319"),
     "hier_query_signed": ("signed_kernels.cu", "src/repro/kernels/hier_query.py:150"),
+    "sketch_update_conservative": ("conservative_kernels.cu",
+                                   "src/repro/kernels/sketch_update_conservative.py:114"),
+    # no Pallas kernel computes this fold: the reference's jnp fori_loop
+    "conservative_fold": ("conservative_kernels.cu", "src/repro/core/sketch.py:253"),
 }
 
 
@@ -169,11 +194,16 @@ def device_kernels(fn):
 def kernel_device_ms(fn, kernel: str, reps: int, evict):
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, per launch, over ``reps`` calls of ``fn`` each after an L2
-    eviction (None when the profiler records no such kernel)."""
+    eviction.  A trace that holds no such kernel (the profiler has
+    returned such traces) is taken again, up to three times in all; None
+    after that."""
     fn()
-    _, _, kernels = device_kernels(lambda: [(evict(), fn()) for _ in range(reps)])
-    times = [us for name, us in kernels if kernel in name]
-    return sum(times) / len(times) / 1e3 if times else None
+    for _ in range(3):
+        _, _, kernels = device_kernels(lambda: [(evict(), fn()) for _ in range(reps)])
+        times = [us for name, us in kernels if kernel in name]
+        if times:
+            return sum(times) / len(times) / 1e3
+    return None
 
 
 def wall(fn):
@@ -336,7 +366,7 @@ def main_path(spec, params, stream, thr, exact_items):
           "topk(100) returns 100 keys by descending estimate")
     e2e = {"kernel": t_k, "plain": t_p, "heavy_hitters_found": int(hh_items.shape[0]),
            "exact_heavy_hitters": int(exact_items.shape[0])}
-    return eng_k, launches, grids, e2e
+    return eng_k, launches, grids, e2e, ans_k[0]
 
 
 def flat_path(spec, params, stream):
@@ -478,6 +508,126 @@ def turnstile_path(spec, hspec, cs_params, stream, seed):
 
 
 # --------------------------------------------------------------------------
+# the accuracy path and conservative heavy hitters
+# --------------------------------------------------------------------------
+
+def accuracy_path(stream, seed):
+    """The paper's pipeline at examples/quickstart.py's size, on the card:
+    a uniform 2% sample, Thm-3 ranges and Thm-4/5 selection, then each of
+    count-min, equal-sketch, mod-sketch and the selected spec built over
+    the whole stream linearly (K1) and conservatively (K5) from one draw,
+    and queried (K2).  Returns (the mod-sketch's conservative sketch,
+    launches, e2e)."""
+    rng = np.random.default_rng((seed, 13))
+    s_items, s_freqs = stream.sample(SAMPLE, rng)
+    draw = seeded_draw(seed)
+    result, t_choose = wall(lambda: choose_sketch(s_items, s_freqs, stream.schema,
+                                                  H_ACC, W_ACC, draw))
+    a, b = result.mod_ranges
+    log(f"accuracy: {s_items.shape[0]} sampled edges; Thm-3 ranges a={a}, b={b}; "
+        f"selected {result.choice} (sigma {result.sigma}) in {t_choose:.3f} s")
+    specs = {"count-min": sk.count_min_spec(stream.schema, H_ACC, W_ACC),
+             "equal-sketch": sk.equal_sketch_spec(stream.schema, H_ACC, W_ACC),
+             "mod-sketch": sk.mod_sketch_spec(stream.schema, [(0,), (1,)], (a, b), W_ACC),
+             "selected": result.spec}
+    qsets = {"top-500": stream.top_k_queries(N_QUERIES),
+             "random-500": stream.random_k_queries(N_QUERIES, rng)}
+    _cuda.reset_launches()
+    rows, built = {}, {}
+    for name, spec in specs.items():
+        params = draw(0, spec)
+        lin = KernelSketch(spec, params, block_b=BLOCK)
+        cons = KernelSketch(spec, params, block_b=BLOCK, mode="conservative")
+        check(scu.residency(W_ACC, cons.h_pad, 4) == "shared",
+              f"{name}: the {W_ACC} x {cons.h_pad} int32 table takes K5's shared route")
+        _, t_lin = wall(lambda: lin.update(stream.items, stream.freqs))
+        _, t_cons = wall(lambda: cons.update(stream.items, stream.freqs))
+        check(bool((cons.table <= lin.table).all()),
+              f"{name}: every conservative cell <= its linear cell")
+        errs = {}
+        for qname, (qi, qf) in qsets.items():
+            e_lin, e_cons = lin.query(qi), cons.query(qi)
+            check(bool(np.all(qf <= e_cons)) and bool(np.all(e_cons <= e_lin)),
+                  f"{name} {qname}: true <= conservative <= linear on every query")
+            errs[qname] = {"linear": observed_error(e_lin, qf),
+                           "conservative": observed_error(e_cons, qf)}
+        rows[name] = {"spec": spec.describe(), "errors": errs,
+                      "linear_ingest_s": t_lin, "conservative_ingest_s": t_cons}
+        log(f"  {name:13s} " + "  ".join(
+            f"{q}: linear {e['linear']:.4f} conservative {e['conservative']:.4f}"
+            for q, e in errs.items()) + f"   ({spec.describe()})")
+        built[name] = cons
+    launches = dict(_cuda.LAUNCHES)
+    log(f"accuracy path launches: {launches}")
+    for kname, kid in (("sketch_update", "K1"), ("sketch_update_conservative", "K5"),
+                       ("sketch_query", "K2")):
+        check(launches[kname] > 0, f"{kid} ({kname}) launched on the accuracy path")
+    e2e = {"sample_rows": int(s_items.shape[0]), "sample_mass": int(s_freqs.sum()),
+           "choose_s": t_choose, "choice": result.choice, "sigma": result.sigma,
+           "mod_ranges": [a, b], "specs": rows}
+    return built["mod-sketch"], launches, e2e
+
+
+def conservative_path(spec, params, stream, thr, exact_items, lin_answer, lin_state,
+                      lin_flat):
+    """Conservative heavy hitters on the main path's spec: the endpoint and
+    engine over the whole stream (K5i, K4) and a flat conservative sketch
+    (K5), each held against its linear twin from the same draw."""
+    _cuda.reset_launches()
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL,
+                            use_kernel=True, mode="conservative")
+    eng = SketchServeEngine(ep, max_staleness=0)
+    items, freqs = stream.items, stream.freqs
+
+    def ingest():
+        for s in range(0, items.shape[0], BLOCK):
+            eng.ingest(items[s : s + BLOCK], freqs[s : s + BLOCK])
+        eng.drain()
+
+    _, t_ingest = wall(ingest)
+    eng.heavy_hitters(thr)                       # warm-up: first launches
+    hh_ans, t_hh = wall(lambda: eng.heavy_hitters(thr))
+    top_ans, t_top = wall(lambda: eng.topk(100))
+    ks = KernelSketch(spec, params, block_b=BLOCK, mode="conservative")
+    _, t_flat = wall(lambda: ks.update(items, freqs))
+    launches = dict(_cuda.LAUNCHES)
+    log(f"conservative path launches: {launches}")
+    for kname, kid in (("conservative_fold", "K5i"), ("hier_query", "K4"),
+                       ("sketch_update_conservative", "K5")):
+        check(launches[kname] > 0, f"{kid} ({kname}) launched on the conservative path")
+    routes = [scu.residency(WIDTH, st.table.shape[1], 4) for st in ep.state.states]
+    check(routes == ["shared", "global"] and
+          scu.residency(WIDTH, ks.h_pad, 4) == "global",
+          f"K5i folds level 0 in shared and level 1 in global memory, K5 the flat "
+          f"table in global memory ({routes})")
+
+    hh_items, hh_est = hh_ans
+    check(hh_items.dtype == np.uint32 and hh_items.shape[1] == 2
+          and hh_est.dtype == np.int64 and bool(np.all(hh_est >= thr)),
+          "conservative heavy_hitters: uint32[K, 2] keys with estimates >= threshold")
+    found = {tuple(r) for r in hh_items.tolist()}
+    missing = [tuple(r) for r in exact_items.tolist() if tuple(r) not in found]
+    check(not missing, f"conservative: no false negatives ({len(missing)} missing)")
+    lin_found = {tuple(r) for r in lin_answer[0].tolist()}
+    check(found <= lin_found, "conservative heavy hitters are a subset of the linear "
+          "main path's at the same threshold")
+    top_items, top_est = top_ans
+    check(top_items.shape == (100, 2) and bool(np.all(np.diff(top_est) <= 0)),
+          "conservative topk(100) returns 100 keys by descending estimate")
+    for lvl, (a, b) in enumerate(zip(ep.state.states, lin_state.states)):
+        check(bool((a.table <= b.table).all()),
+              f"conservative level {lvl} <= the linear level, cell by cell")
+    check(bool((ks.table <= lin_flat.table).all()),
+          "conservative flat table <= the linear flat table, cell by cell")
+    e2e = {"ingest_s": t_ingest, "ingest_rows_per_s": items.shape[0] / t_ingest,
+           "heavy_hitters_ms": t_hh * 1e3, "topk100_ms": t_top * 1e3,
+           "heavy_hitters_found": len(found), "linear_found": len(lin_found),
+           "flat_ingest_s": t_flat, "flat_ingest_rows_per_s": items.shape[0] / t_flat,
+           "level_routes": routes}
+    return ep, ks, launches, e2e
+
+
+# --------------------------------------------------------------------------
 # phases 3-4: each kernel against its plain version, timed, beside its bound
 # --------------------------------------------------------------------------
 
@@ -497,23 +647,31 @@ class KernelRows:
     def evict(self) -> None:
         self._l2.add_(1)
 
-    def add(self, name, symbol, *, err, call, plain, library, n_bytes, n_ops, shape):
+    def measure(self, name, symbol, *, err, call, plain, library, n_bytes, n_ops,
+                shape, reps=(100, 20, 50, 200)) -> dict:
+        """One kernel's row: ``reps`` counts the cold, plain, device and warm
+        calls (the sequential folds take tens of ms a call, their plain
+        versions seconds)."""
         check(err == 0, f"{name} bit-identical to its plain version (max |err| {err})")
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         source, replaces = KERNELS[name]
+        n_cold, n_plain, n_dev, n_warm = reps
         out = {"name": name, "route": "cuda", "source": CSRC + source,
                "replaces": replaces, "launches": self.launches[name],
-               "max_abs_err": err, "ms": cold_ms(call, 100, self.evict),
-               "plain_ms": cold_ms(plain, 20, self.evict), "bound_ms": b_ms,
+               "max_abs_err": err, "ms": cold_ms(call, n_cold, self.evict),
+               "plain_ms": cold_ms(plain, n_plain, self.evict), "bound_ms": b_ms,
                "bound_by": b_by,
                "library_ms": cold_ms(library, 50, self.evict) if library else None,
-               "device_ms": kernel_device_ms(call, symbol, 50, self.evict),
-               "warm_call_ms": cuda_ms(call, 200), "shape": shape}
-        self.rows.append(out)
+               "device_ms": kernel_device_ms(call, symbol, n_dev, self.evict),
+               "warm_call_ms": cuda_ms(call, n_warm), "shape": shape}
         log(f"{name}: {out['ms']:.5f} ms cold, {out['device_ms']} ms on the device "
             f"(profiler), {out['warm_call_ms']:.5f} ms per warm back-to-back call; "
             f"plain {out['plain_ms']:.5f}, bound {b_ms:.5f} by {b_by}, library "
             f"{out['library_ms']} at {shape}")
+        return out
+
+    def add(self, name, symbol, **kw) -> None:
+        self.rows.append(self.measure(name, symbol, **kw))
 
 
 def grid_replay_err(calls, kernel, plain) -> float:
@@ -713,6 +871,108 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids):
            shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
 
 
+def chain_step_ms(n_cells: int, shared: bool, evict, steps: int = BLOCK) -> float:
+    """Milliseconds per dependent step of the fold's chain -- one table load
+    whose address depends on the last warp minimum, then the warp minimum --
+    over a random permutation of ``n_cells`` int32 cells in shared or
+    global memory (the probe kernel of csrc/conservative_kernels.cu)."""
+    dev = torch.device(DEVICE)
+    perm = torch.randperm(n_cells, device=dev, dtype=torch.int32)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+
+    def probe():
+        _cuda.check(lib.sk_chain_probe(perm.data_ptr(), n_cells, steps, int(shared),
+                                       out.data_ptr(), _cuda.stream_of(perm)),
+                    "chain probe")
+
+    return cold_ms(probe, 3, evict) / steps
+
+
+def fold_touched(tables, idxs, f) -> int:
+    """Distinct cells a block with frequencies ``f`` touches, over tables."""
+    keep = f != 0
+    return sum(int(torch.unique(idx[:, keep] + torch.arange(
+        t.shape[0], device=idx.device)[:, None] * t.shape[1]).numel())
+        for t, idx in zip(tables, idxs))
+
+
+def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
+    """K5i on the first block into copies of the live conservative levels;
+    K5 on the first block into copies of the flat conservative table
+    (global route) and of the accuracy path's mod-sketch table (shared
+    route).  The plain folds run on the card, one Python step per row."""
+    dev = torch.device(DEVICE)
+    blk_items = stream.items[:BLOCK]
+    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
+    reps = (5, 1, 5, 5)
+    t_shared = chain_step_ms(W_ACC * acc_ks.h_pad, True, kr.evict)
+    t_global = chain_step_ms(WIDTH * ks.h_pad, False, kr.evict)
+    log(f"chain step: {t_shared * 1e6:.2f} ns in shared memory "
+        f"({W_ACC * acc_ks.h_pad} cells), {t_global * 1e6:.2f} ns in global memory "
+        f"({WIDTH * ks.h_pad} cells)")
+
+    # K5i: both levels, one launch
+    tables = [st.table for st in ep.state.states]
+    idxs = hh.hierarchy_indices(hspec, ep.state.states[-1].params, blk_items)
+    got, want = [t.clone() for t in tables], [t.clone() for t in tables]
+    scu.conservative_fold_tables(got, idxs, f)
+    scu.conservative_fold_tables_ref(want, idxs, f)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    del got, want
+    scratch = [t.clone() for t in tables]
+    n_lv = len(tables)
+    row = kr.measure(
+        "conservative_fold", "sk_conservative_fold_kernel", err=err,
+        call=lambda: scu.conservative_fold_tables(scratch, idxs, f),
+        plain=lambda: scu.conservative_fold_tables_ref(scratch, idxs, f), library=None,
+        n_bytes=4 * WIDTH * BLOCK * n_lv + nbytes(f) + 8 * fold_touched(tables, idxs, f),
+        n_ops=4 * WIDTH * BLOCK * n_lv,
+        shape=f"B={BLOCK} w={WIDTH} levels={n_lv} cols={[t.shape[1] for t in tables]}",
+        reps=reps)
+    row.update(residency="level 0 shared, level 1 global",
+               chain_step_ns={"shared": t_shared * 1e6, "global": t_global * 1e6},
+               chain_bound_ms=BLOCK * t_global)
+    kr.rows.append(row)
+    del scratch
+
+    # K5: the flat 268 MB table (global route), then the accuracy path's
+    # 5 x 4,096 table (shared route)
+    def k5(sketch, t_step):
+        plan, table = sketch.plan, sketch.table
+        q, r = sketch.params
+        chunks = sketch.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
+        err = max_abs_err(
+            scu.sketch_update_conservative(plan, table.clone(), chunks, f, q, r),
+            scu.sketch_update_conservative_ref(plan, table.clone(), chunks, f, q, r))
+        scratch = table.clone()
+        w, h_pad = table.shape
+        idx = all_indices(plan, chunks, q, r)
+        out = kr.measure(
+            "sketch_update_conservative", "sk_conservative_update_kernel", err=err,
+            call=lambda: scu.sketch_update_conservative(plan, scratch, chunks, f, q, r),
+            plain=lambda: scu.sketch_update_conservative_ref(plan, scratch, chunks, f,
+                                                             q, r),
+            library=None,
+            n_bytes=key_bytes(sketch.spec.schema, BLOCK) + nbytes(f)
+            + param_bytes(q, r) + 8 * fold_touched([table], [idx], f),
+            n_ops=hash_ops(plan, BLOCK) + 4 * w * BLOCK,
+            shape=f"B={BLOCK} w={w} h_pad={h_pad}", reps=reps)
+        out.update(residency=scu.residency(w, h_pad, table.element_size()),
+                   chain_step_ns=t_step * 1e6, chain_bound_ms=BLOCK * t_step)
+        return out
+
+    row = k5(ks, t_global)
+    shared = k5(acc_ks, t_shared)
+    check(row["residency"] == "global" and shared["residency"] == "shared",
+          "K5 measured on both residency routes")
+    row["max_abs_err"] = max(row["max_abs_err"], shared["max_abs_err"])
+    row["shared_route"] = {k: shared[k] for k in (
+        "ms", "device_ms", "warm_call_ms", "plain_ms", "bound_ms", "bound_by",
+        "chain_step_ns", "chain_bound_ms", "max_abs_err", "shape")}
+    kr.rows.append(row)
+
+
 def busy_share(run) -> dict:
     """Run ``run`` under torch.profiler: the device's busy and idle share of
     its wall time, and the kernels that take the device time."""
@@ -760,6 +1020,24 @@ def turnstile_profile(spec, hspec, cs_params, turnstile, thr, cands):
     return busy_share(run)
 
 
+def conservative_profile(spec, params, stream, thr):
+    """The conservative path once more (endpoint ingest, ``heavy_hitters``,
+    ``topk``, the flat sketch's ingest) under the profiler."""
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL,
+                            use_kernel=True, mode="conservative")
+    eng = SketchServeEngine(ep, max_staleness=0)
+    ks = KernelSketch(spec, params, block_b=BLOCK, mode="conservative")
+
+    def run():
+        for s in range(0, stream.items.shape[0], BLOCK):
+            eng.ingest(stream.items[s : s + BLOCK], stream.freqs[s : s + BLOCK])
+        eng.heavy_hitters(thr)
+        eng.topk(100)
+        ks.update(stream.items, stream.freqs)
+
+    return busy_share(run)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -801,7 +1079,8 @@ def main(argv=None) -> int:
             pool.offer(stream.items[s : s + BLOCK, [j]], stream.freqs[s : s + BLOCK])
     t_pools = time.perf_counter() - t
 
-    eng, main_launches, grids, e2e = main_path(spec, params, stream, thr, exact_items)
+    eng, main_launches, grids, e2e, main_answer = main_path(spec, params, stream, thr,
+                                                            exact_items)
     e2e["pools_only_s"] = t_pools
     ks, flat_launches, flat_e2e = flat_path(spec, params, stream)
     e2e["flat"] = flat_e2e
@@ -813,17 +1092,32 @@ def main(argv=None) -> int:
         spec, hspec, cs_params, stream, args.seed)
     e2e["turnstile"] = turn_e2e
 
+    acc_ks, acc_launches, acc_e2e = accuracy_path(stream, args.seed)
+    e2e["accuracy"] = acc_e2e
+    ep_c, ks_c, cons_launches, cons_e2e = conservative_path(
+        spec, params, stream, thr, exact_items, main_answer, eng.backend.state, ks)
+    e2e["conservative"] = cons_e2e
+
     kr = KernelRows({**main_launches,
                      "sketch_update": flat_launches["sketch_update"],
                      "sketch_query": flat_launches["sketch_query"],
-                     **{k: v for k, v in turn_launches.items() if k.endswith("_signed")}})
+                     **{k: v for k, v in turn_launches.items() if k.endswith("_signed")},
+                     "conservative_fold": cons_launches["conservative_fold"],
+                     "sketch_update_conservative": (
+                         acc_launches["sketch_update_conservative"]
+                         + cons_launches["sketch_update_conservative"])})
     kernel_rows(kr, hspec, eng, ks, stream, grids)
     signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids)
-    del eng, ks, grids, kh_s, ks_s, sgrids
+    conservative_kernel_rows(kr, hspec, ep_c, ks_c, acc_ks, stream)
+    kr.rows[-1]["launches_by_path"] = {
+        "accuracy": acc_launches["sketch_update_conservative"],
+        "conservative": cons_launches["sketch_update_conservative"]}
+    del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks
     e2e["profile"] = device_profile(spec, params, stream, thr)
     turn_e2e["profile"] = turnstile_profile(
         spec, hspec, cs_params, turnstile, turn_e2e["threshold"],
         group_candidates(spec, stream.items))
+    cons_e2e["profile"] = conservative_profile(spec, params, stream, thr)
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Distributed sketch runtime, PyTorch port -- this slice carries only the
-block padding the single-shard endpoint uses.
+block padding the single-shard endpoint uses and the linear-mode guard of
+every sharded and merge entry point.
 
 The reference's shard_map/psum runtime (``repro/core/distributed.py``)
 arrives on ``torch.distributed`` with the sharding slice (ROADMAP item 12).
@@ -7,6 +8,19 @@ arrives on ``torch.distributed`` with the sharding slice (ROADMAP item 12).
 from __future__ import annotations
 
 import numpy as np
+
+
+def require_linear(mode: str, entry: str) -> None:
+    """Refuse conservative tables on any sharded/merge entry point, with the
+    reference's message: a psum (or cell-wise sum) of conservatively built
+    tables is not the table of the union stream.  Linear and signed tables
+    are linear in the stream and pass."""
+    if mode not in ("linear", "signed"):
+        raise ValueError(
+            f"{entry} is only defined for linear tables (got mode="
+            f"{mode!r}): conservative tables are not linear in the stream, "
+            "so per-shard folds cannot be psum-merged -- conservative mode "
+            "is single-shard by construction")
 
 
 def pad_block_pow2(items: np.ndarray, freqs: np.ndarray, n_shards: int):

@@ -28,9 +28,15 @@ row (:func:`candidate_partials`), combined on the card by K4
 Indices are int64 tensors; descent results are numpy, exactly the
 reference's ``uint32[K, n_modules]`` / ``int64[K]``.  The ``*_jit`` names
 and :func:`fold_indices` update the tables in place (the reference donates
-them); :func:`update`, :func:`update_reference` and :func:`merge` return
-new tables.  Conservative folds and the sharded build arrive with later
-slices.
+them); :func:`update`, :func:`update_reference`,
+:func:`update_conservative` and :func:`merge` return new tables.
+
+The conservative folds share the cascade's one hash pass and then fold
+every level sequentially (the row-coupling min keeps the folds per level):
+on the card all levels in one K5i launch, one CTA per level
+(kernels/sketch_update_conservative.py).  Conservative tables are not
+linear in the stream and never enter :func:`merge` or the sharded build,
+which arrives with ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sketch as sk
+from repro_torch.core.distributed import require_linear
 from repro_torch.core.hashing import KeySchema
 from repro_torch.device import DeviceLike, as_index_tensor
 
@@ -236,8 +243,46 @@ def update_jit(hspec: HierarchySpec, state: HierarchyState,
     return fold_indices(state, idxs, freqs)
 
 
+def _fold_conservative_(state: HierarchyState, idxs, freqs) -> HierarchyState:
+    """Every level's conservative fold at its cascade indices, in place: one
+    K5i launch for all levels on the card, the plain loop on the CPU."""
+    from repro_torch.kernels.sketch_update_conservative import conservative_fold_tables
+
+    tables = [st.table for st in state.states]
+    conservative_fold_tables(tables, idxs, sk.as_freqs(freqs, tables[0].device))
+    return state
+
+
+def update_conservative(hspec: HierarchySpec, state: HierarchyState,
+                        items, freqs) -> HierarchyState:
+    """Conservative fold into copies of every level (freqs non-negative).
+
+    The index computation shares the one-hash-pass cascade with
+    :func:`update`; each level then applies the sequential Estan-Varghese
+    fold independently, so every level still never underestimates and the
+    descent's no-false-negative argument holds.  The tables are NOT linear
+    in the stream: never :func:`merge` them."""
+    _require_shared_params(state, "hierarchy.update_conservative")
+    idxs = hierarchy_indices(hspec, state.states[-1].params, items)
+    copy = HierarchyState(states=tuple(
+        sk.SketchState(params=st.params, table=st.table.clone())
+        for st in state.states))
+    return _fold_conservative_(copy, idxs, freqs)
+
+
+def update_conservative_jit(hspec: HierarchySpec, state: HierarchyState,
+                            items, freqs) -> HierarchyState:
+    """In-place :func:`update_conservative` (the reference donates every
+    level table)."""
+    _require_shared_params(state, "hierarchy.update_conservative_jit")
+    idxs = hierarchy_indices(hspec, state.states[-1].params, items)
+    return _fold_conservative_(state, idxs, freqs)
+
+
 def merge(a: HierarchyState, b: HierarchyState) -> HierarchyState:
-    """Cell-wise merge per level -- exact by linearity."""
+    """Cell-wise merge per level -- exact by linearity.  Only valid for
+    hierarchies built with the linear update: conservative tables are
+    excluded, which is why the endpoint's ``merge_from`` refuses them."""
     return HierarchyState(states=tuple(
         sk.merge(sa, sb) for sa, sb in zip(a.states, b.states)))
 
@@ -272,6 +317,20 @@ def fold_indices(state: HierarchyState, idxs: Tuple[torch.Tensor, ...],
     for st, idx in zip(state.states, idxs):
         sk.add_at_indices_(st.table, idx, freqs)
     return state
+
+
+def sharded_hierarchy_build(hspec: HierarchySpec, state: HierarchyState,
+                            mesh, data_axes, items, freqs, *,
+                            mode: str = "linear") -> HierarchyState:
+    """The reference's sharded cascade fold with a per-level psum.
+
+    ``mode`` exists only to be refused, as in the reference: a
+    conservatively built hierarchy has non-linear tables and must never
+    enter a psum.  The fold itself is not ported yet."""
+    require_linear(mode, "sharded_hierarchy_build")
+    raise NotImplementedError(
+        "sharded_hierarchy_build is not ported yet (ROADMAP item 12, "
+        "sharding)")
 
 
 # --------------------------------------------------------------------------

@@ -13,8 +13,13 @@ This module is the plain PyTorch path (``index_add_`` scatter, ``gather``
 reads) on int64 indices.  Hash params are int64 tensors; tables keep their
 own dtype.  Where the reference donates the table to a jitted update, the
 port updates in place: the ``*_jit`` names and :func:`add_at_indices_` fold
-into the given table, the others return a new one.  Conservative update,
-the marginal query and ``cell_std`` arrive with a later slice.
+into the given table, the others return a new one.
+
+The conservative (Estan-Varghese) fold is sequential in the block: on a
+CUDA table :func:`conservative_fold` launches K5i
+(kernels/sketch_update_conservative.py), on a CPU table it runs that
+kernel's plain per-item loop.  :func:`query_marginal` and :func:`cell_std`
+serve the paper's strategy search (core/selection.py and its kin).
 """
 from __future__ import annotations
 
@@ -30,7 +35,12 @@ from repro_torch.core.hashing import (
     cw_hash_np,
     draw_hash_params,
 )
-from repro_torch.device import DeviceLike, as_index_tensor, resolve_device
+from repro_torch.device import (
+    DeviceLike,
+    as_index_tensor,
+    numpy_dtype_name,
+    resolve_device,
+)
 
 
 # --------------------------------------------------------------------------
@@ -277,6 +287,72 @@ def query(spec: SketchSpec, state: SketchState, items) -> torch.Tensor:
     return vals.min(dim=0).values
 
 
+def conservative_fold_(table: torch.Tensor, idx: torch.Tensor,
+                       freqs) -> torch.Tensor:
+    """Estan-Varghese fold with precomputed indices, IN PLACE (sequential
+    in B): ``cell_k <- max(cell_k, min_k(cell_k) + f)``, one item at a
+    time.  A CUDA table launches K5i; a CPU table runs its plain loop."""
+    from repro_torch.kernels.sketch_update_conservative import conservative_fold_tables
+
+    conservative_fold_tables([table], [idx], as_freqs(freqs, table.device))
+    return table
+
+
+def conservative_fold(table: torch.Tensor, idx: torch.Tensor,
+                      freqs) -> torch.Tensor:
+    """Out-of-place :func:`conservative_fold_` (the reference's pure fold).
+
+    idx: int64[w, B]; freqs [B], non-negative (see
+    :func:`check_conservative_freqs`), cast to the table dtype."""
+    return conservative_fold_(table.clone(), idx, freqs)
+
+
+def update_conservative(spec: SketchSpec, state: SketchState, items,
+                        freqs) -> SketchState:
+    """Conservative update into a copy of the sketch (breaks linearity:
+    not mergeable across shards)."""
+    idx = compute_indices(spec, state.params, items)          # [w, B]
+    return SketchState(params=state.params,
+                       table=conservative_fold(state.table, idx, freqs))
+
+
+def update_conservative_jit(spec: SketchSpec, state: SketchState, items,
+                            freqs) -> SketchState:
+    """In-place :func:`update_conservative` (the reference donates the
+    table here)."""
+    idx = compute_indices(spec, state.params, items)
+    conservative_fold_(state.table, idx, freqs)
+    return state
+
+
+def check_conservative_freqs(freqs, table_dtype) -> None:
+    """Validate a conservative-update frequency block (host-side; shared by
+    kernels/ops.KernelSketch and serving.sketch_engine.SketchTopKEndpoint).
+
+    f < 0 would make est = min + f <= every cell, a silent no-op; an int
+    frequency past the table dtype's range would wrap negative in the cast
+    with the same silent outcome.  Both are rejected loudly, with the
+    reference's messages.  ``table_dtype``: a torch or numpy dtype.
+    """
+    freqs = np.asarray(freqs)
+    if freqs.size == 0:
+        return
+    if not np.all(freqs >= 0):   # catches f < 0 AND NaN
+        raise ValueError(
+            "conservative update requires non-negative frequencies "
+            "(f < 0 would be a silent no-op; NaN would poison every "
+            "touched cell)")
+    if isinstance(table_dtype, torch.dtype):
+        table_dtype = numpy_dtype_name(table_dtype)
+    table_dtype = np.dtype(table_dtype)
+    if (np.issubdtype(table_dtype, np.integer)
+            and freqs.max() > np.iinfo(table_dtype).max):
+        raise ValueError(
+            f"per-arrival frequency exceeds the {table_dtype} "
+            "table range (the cast would wrap negative and the update "
+            "would silently no-op): use a wider table dtype")
+
+
 def merge(a: SketchState, b: SketchState) -> SketchState:
     """Cell-wise merge: sketch(A + B) == merge(sketch(A), sketch(B)) exactly."""
     return SketchState(params=a.params, table=a.table + b.table)
@@ -312,6 +388,34 @@ def group_subindex(spec: SketchSpec, params: SketchParams, group: int,
     the hierarchy's separable candidate queries are built.
     """
     return group_hash(spec, params, group, values) % int(spec.ranges[group])
+
+
+def query_marginal(spec: SketchSpec, state: SketchState, group: int,
+                   values) -> torch.Tensor:
+    """Subspace query: estimate O(*,..,value,..,*) -- the total frequency of
+    all items whose ``group`` equals ``value`` (e.g. a node's out-degree
+    mass in an edge stream).
+
+    The group's sub-index is a separate factor of the cell address, so the
+    marginal is the sum of the ``h / range_j`` cells sharing it, min'd over
+    rows.  ``values``: [Q, len(group modules)] module values for the group.
+    Sums keep the table dtype (int32 wraps as jnp's sum does).
+    """
+    w = spec.width
+    sub_idx = group_subindex(spec, state.params, group, values)   # [w, Q]
+    grid = state.table.reshape((w,) + tuple(spec.ranges))
+    dims = tuple(1 + j for j in range(spec.n_groups) if j != group)
+    per_value = grid.sum(dim=dims, dtype=state.table.dtype) if dims else grid
+    vals = torch.gather(per_value, 1, sub_idx)                    # [w, Q]
+    return vals.min(dim=0).values
+
+
+def cell_std(table: torch.Tensor) -> torch.Tensor:
+    """Std-dev of all cell values -- the Thm 4/5 selection statistic: a
+    population std (ddof 0, as ``jnp.std``), in float64 for int64 tables
+    and float32 otherwise."""
+    dt = torch.float64 if table.dtype == torch.int64 else torch.float32
+    return table.to(dt).std(correction=0)
 
 
 # --------------------------------------------------------------------------

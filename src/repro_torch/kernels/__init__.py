@@ -1,6 +1,6 @@
-"""Hand-written Hopper kernels for the sketch hot path (K0-K4 and the
-signed K6-K9 in ``csrc/``), their plain PyTorch versions, and the wrappers
-in ops.py.
+"""Hand-written Hopper kernels for the sketch hot path (K0-K4, the signed
+K6-K9 and the conservative K5/K5i in ``csrc/``), their plain PyTorch
+versions, and the wrappers in ops.py.
 
 The wrappers ``sketch_update``, ``sketch_query`` and ``hier_update`` share
 their modules' names, so import them (and their signed twins) from the

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sketch_kernels.cu", "signed_kernels.cu")
+SOURCES = ("sketch_kernels.cu", "signed_kernels.cu", "conservative_kernels.cu")
 HEADERS = ("hashes.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,7 +39,8 @@ MAX_LEVELS = 16
 LAUNCHES: Dict[str, int] = {
     "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0,
     "sketch_update_signed": 0, "sketch_query_signed": 0,
-    "hier_update_signed": 0, "hier_query_signed": 0}
+    "hier_update_signed": 0, "hier_query_signed": 0,
+    "sketch_update_conservative": 0, "conservative_fold": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -68,6 +69,19 @@ class LevelsC(ctypes.Structure):
         ("n_levels", ctypes.c_int32),
         ("divs", ctypes.c_uint32 * MAX_LEVELS),
         ("offsets", ctypes.c_int64 * MAX_LEVELS),
+    ]
+
+
+class ConsLevelsC(ctypes.Structure):
+    """Mirror of ``struct ConsLevelsC`` in csrc/conservative_kernels.cu."""
+    _fields_ = [
+        ("n_levels", ctypes.c_int32),
+        ("w", ctypes.c_int32),
+        ("tables", ctypes.c_void_p * MAX_LEVELS),
+        ("idx", ctypes.c_void_p * MAX_LEVELS),
+        ("row_stride", ctypes.c_int64 * MAX_LEVELS),
+        ("cols", ctypes.c_int64 * MAX_LEVELS),
+        ("shared", ctypes.c_int32 * MAX_LEVELS),
     ]
 
 
@@ -174,6 +188,11 @@ def _declare(lib) -> None:
         "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, vp],
         "sk_hier_update_signed": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_hier_query_signed": [vp, i64, i32, vp, vp, i64, vp, vp, i64, vp, vp],
+        "sk_conservative_update_i32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
+        "sk_conservative_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
+        "sk_conservative_fold_i32": [vp, vp, i64, i32, vp],
+        "sk_conservative_fold_f32": [vp, vp, i64, i32, vp],
+        "sk_chain_probe": [vp, i64, i64, i32, vp, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -206,13 +225,22 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def require_int32_table(table: torch.Tensor, kernel: str) -> None:
-    if table.dtype == torch.float32:
+def require_table_dtype(table: torch.Tensor, kernel: str,
+                        dtypes=(torch.int32,)) -> None:
+    """The kernel's table types: int32 for K1-K4 and K6-K9, whose float32
+    bodies come with ROADMAP item 14; int32 and float32 for K5/K5i."""
+    if table.dtype == torch.float32 and torch.float32 not in dtypes:
         raise NotImplementedError(
             f"{kernel}: float32 tables have no CUDA kernel yet -- the f32 "
             "variants arrive with the training slice (ROADMAP item 14)")
-    require(table.dtype == torch.int32,
-            f"{kernel}: the CUDA kernel takes int32 tables, got {table.dtype}")
+    require(table.dtype in dtypes,
+            f"{kernel}: the CUDA kernel takes "
+            f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)} "
+            f"tables, got {table.dtype}")
+
+
+def require_int32_table(table: torch.Tensor, kernel: str) -> None:
+    require_table_dtype(table, kernel)
 
 
 def require_on(device: torch.device, kernel: str, **tensors) -> None:
@@ -224,11 +252,12 @@ def require_on(device: torch.device, kernel: str, **tensors) -> None:
 
 def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
                         chunks: torch.Tensor, q: torch.Tensor,
-                        r: torch.Tensor) -> None:
-    """Checks shared by the kernels that hash in place (K1-K3, K6-K8): a
-    contiguous int32 [w, cols] table, int64 chunks [B, C] and params
-    q [w, C] / r [w, m] on the table's device, matching ``plan``."""
-    require_int32_table(table, kernel)
+                        r: torch.Tensor, dtypes=(torch.int32,)) -> None:
+    """Checks shared by the kernels that hash in place (K1-K3, K5-K8): a
+    contiguous [w, cols] table of one of ``dtypes``, int64 chunks [B, C]
+    and params q [w, C] / r [w, m] on the table's device, matching
+    ``plan``."""
+    require_table_dtype(table, kernel, dtypes)
     require_on(table.device, kernel, table=table, chunks=chunks, q=q, r=r)
     require(chunks.dtype == q.dtype == r.dtype == torch.int64,
             f"{kernel}: chunks, q and r must be int64")

@@ -17,8 +17,15 @@ The padded table width (``tile_h``) is kept although no CUDA kernel needs
 it: it makes the port's tables and ``state_dict`` arrays interchangeable
 with the reference's.  Blocks are not padded: zero-frequency pad rows are
 no-ops, so the reference's fixed-length padding changes nothing but the
-work done.  Conservative mode arrives with a later slice (ROADMAP item
-9), the sharded fold with item 12.
+work done.
+
+``mode="conservative"`` is the Estan-Varghese update: strictly tighter
+estimates on insert-only streams, but the table is NOT linear in the
+stream, so ``merge``/``state()`` are refused; queries are unchanged (K2).
+Every block is folded by K5 (kernels/sketch_update_conservative.py), in
+shared memory when the table fits one CTA's and in global memory
+otherwise; both routes are the hand-written kernel.  int32 and float32
+tables are both exact there.  The sharded fold arrives with item 12.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.core import countsketch as cs
 from repro_torch.core import hierarchy as hh
+from repro_torch.core.distributed import require_linear
 from repro_torch.core import sketch as sk
 from repro_torch.device import DeviceLike, as_index_tensor, numpy_dtype_name
 from repro_torch.kernels.hashes import make_plan
@@ -41,18 +49,11 @@ from repro_torch.kernels.sketch_update import (
     sketch_update,
     sketch_update_signed,
 )
+from repro_torch.kernels.sketch_update_conservative import sketch_update_conservative
 
 _MAX_KERNEL_FREQ = 1 << 24  # the reference's two 12-bit limbs
 
 MODES = ("linear", "conservative", "signed")
-
-
-def _require_ported_mode(mode: str, what: str) -> None:
-    if mode == "conservative":
-        raise NotImplementedError(
-            f"{what} mode='conservative' is not ported yet (ROADMAP item 9)")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
 
 def _is_integer(dtype: torch.dtype) -> bool:
@@ -98,8 +99,8 @@ def _as_uint32(t: torch.Tensor) -> np.ndarray:
 
 
 class KernelSketch:
-    """Flat sketch whose table lives padded for the kernels (K1/K2, or
-    K6/K7 in signed mode).
+    """Flat sketch whose table lives padded for the kernels (K1/K2, K5/K2
+    in conservative mode, or K6/K7 in signed mode).
 
     ``params``: a ``torch.Generator`` or, in place of the reference's jax
     key, the arrays of a draw -- ``(q, r)`` in linear mode, ``(q, r,
@@ -110,7 +111,8 @@ class KernelSketch:
     def __init__(self, spec: sk.SketchSpec, params, *, tile_h: int = 512,
                  block_b: int = 1 << 16, dtype=torch.int32,
                  device: DeviceLike = None, mode: str = "linear"):
-        _require_ported_mode(mode, "KernelSketch")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.spec = spec
         self.plan = make_plan(spec)
         self.mode = mode
@@ -131,13 +133,21 @@ class KernelSketch:
         return self.table.device
 
     # -- stream ops ---------------------------------------------------------
-    def update(self, items, freqs) -> None:
-        items = np.asarray(items, dtype=np.uint32)
-        freqs = np.asarray(freqs)
-        if self.mode == "signed":
+    def _check_freqs(self, freqs: np.ndarray) -> None:
+        """Reject frequencies the mode's kernel refuses: the limb-split
+        bounds of the linear and signed kernels, and the conservative
+        fold's non-negativity and table-range checks."""
+        if self.mode == "conservative":
+            sk.check_conservative_freqs(freqs, self.table.dtype)
+        elif self.mode == "signed":
             check_signed_kernel_freqs(freqs, self.table.dtype)
         else:
             check_linear_kernel_freqs(freqs, self.table.dtype)
+
+    def update(self, items, freqs) -> None:
+        items = np.asarray(items, dtype=np.uint32)
+        freqs = np.asarray(freqs)
+        self._check_freqs(freqs)
         if items.shape[0] == 0:
             return
         chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
@@ -148,18 +158,22 @@ class KernelSketch:
             if self.mode == "signed":
                 sketch_update_signed(self.plan, self.table, blk_c, blk_f, q, r,
                                      self.cs_params.sign_q, self.cs_params.sign_r)
+            elif self.mode == "conservative":
+                sketch_update_conservative(self.plan, self.table, blk_c, blk_f, q, r)
             else:
                 sketch_update(self.plan, self.table, blk_c, blk_f, q, r)
 
     def query(self, items) -> np.ndarray:
-        """Point estimates: min over rows, int32[Q] (linear), or the
-        unbiased median over signed rows, float32[Q] (signed mode)."""
+        """Point estimates: min over rows, int32[Q] (linear and
+        conservative), or the unbiased median over signed rows, float32[Q]
+        (signed mode).  A float32 table is read as int32, as the
+        reference's query kernel casts it."""
         if self.mode == "signed":
             return cs.median_rows(self._signed_rows(items)).cpu().numpy()
         items = np.asarray(items, dtype=np.uint32)
         chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
-        est = sketch_query(self.plan, self.table, chunks, self.params.q,
-                           self.params.r)
+        est = sketch_query(self.plan, self.table.to(torch.int32), chunks,
+                           self.params.q, self.params.r)
         return est.cpu().numpy()
 
     def query_rows(self, items) -> np.ndarray:
@@ -178,7 +192,10 @@ class KernelSketch:
                                    self.cs_params.sign_r)
 
     def sharded_update(self, *args, **kwargs) -> None:
-        """The reference's shard_map/psum fold; not ported yet."""
+        """The reference's shard_map/psum fold; not ported yet.  A
+        conservative sketch refuses first, as the reference does: its table
+        cannot be psum-merged."""
+        require_linear(self.mode, "KernelSketch.sharded_update")
         raise NotImplementedError(
             "KernelSketch.sharded_update is not ported yet (ROADMAP item 12, "
             "sharding)")
@@ -186,7 +203,14 @@ class KernelSketch:
     # -- interop ------------------------------------------------------------
     def merge(self, other: "KernelSketch") -> None:
         """Cell-wise merge (cross-shard fold); linear and signed tables are
-        both linear in the stream."""
+        both linear in the stream.  Conservative tables are not -- the sum
+        of two conservatively built tables is not the table of the joined
+        stream -- so merging them is refused in either direction."""
+        if self.mode == "conservative" or other.mode == "conservative":
+            raise ValueError(
+                "merge is only defined for linear-table sketches (linear "
+                "or signed mode): conservative tables are not linear in "
+                "the stream")
         if self.mode != other.mode:
             raise ValueError(
                 "merge requires identical modes (a min-estimated and a "
@@ -215,7 +239,8 @@ class KernelSketch:
     def state(self) -> sk.SketchState:
         """Unpadded SketchState view (for merge with the plain path).
 
-        Linear mode only: signed tables carry sign params a SketchState
+        Linear mode only: conservative tables must not enter the cell-wise
+        merge path, and signed tables carry sign params a SketchState
         cannot hold (:meth:`cs_state`)."""
         if self.mode != "linear":
             raise ValueError(
@@ -300,7 +325,11 @@ class KernelHierarchy:
     def __init__(self, hspec, params, *, tile_h: int = 512,
                  block_b: int = 1 << 16, dtype=torch.int32,
                  device: DeviceLike = None, mode: str = "linear"):
-        _require_ported_mode(mode, "KernelHierarchy")
+        if mode not in ("linear", "signed"):
+            raise ValueError(
+                "KernelHierarchy modes are 'linear' and 'signed' "
+                "(conservative hierarchies take "
+                f"core.hierarchy.update_conservative), got {mode!r}")
         self.hspec = hspec
         self.hplan = make_hier_plan(hspec, tile_h)
         self.mode = mode

@@ -13,6 +13,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.distributed import require_linear
+
 
 class MigratingSurface:
     """Mixin: the migration surface shared by every serving surface."""
@@ -30,6 +32,9 @@ class MigratingSurface:
         return 1.0
 
     def begin_migration(self, new_spec, params, *, warmup: int) -> None:
+        """Not ported yet.  A conservative surface refuses first, with the
+        reference's guard: its tables are excluded from every migration."""
+        require_linear(self.mode, f"{type(self).__name__}.begin_migration")
         raise NotImplementedError(
             f"{type(self).__name__}.begin_migration: hot spec migration is "
             "not ported yet (ROADMAP item 11)")

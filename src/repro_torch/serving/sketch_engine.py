@@ -1,7 +1,8 @@
 """Sketch-serving stack, PyTorch port: the streaming top-k endpoint + the
 async engine.
 
-Port of ``repro/serving/sketch_engine.py``, linear mode:
+Port of ``repro/serving/sketch_engine.py``, linear and conservative
+modes:
 
 :class:`SketchTopKEndpoint`
     the single-shard hierarchical heavy-hitter endpoint -- synchronous
@@ -9,6 +10,10 @@ Port of ``repro/serving/sketch_engine.py``, linear mode:
     the reference's.  ``use_update_kernel=True`` folds every block into all
     levels with one K3 launch (kernels/ops.KernelHierarchy);
     ``use_kernel=True`` scores every descent grid with K4.
+    ``mode="conservative"`` folds every block with the Estan-Varghese
+    update, all levels in one K5i launch on the card; its tables are not
+    linear in the stream, so it stays single-shard and refuses every merge
+    surface.
 
 :class:`SketchServeEngine`
     the async engine in front of an endpoint: staged ingest on the plain
@@ -22,9 +27,9 @@ would see later ingest and silently break the staleness contract.  The
 staged fold runs on the current stream; overlapping it with the next
 block's hash on a side stream is later performance work.
 
-Not ported yet, and refused by name: conservative mode (ROADMAP item 9),
-migration and the auto-tuner (item 11), ``to_sharded`` and sharded
-backends (item 12), windowed backends (item 11).
+Not ported yet, and refused by name: migration and the auto-tuner (ROADMAP
+item 11), ``to_sharded`` and sharded backends (item 12), windowed backends
+(item 11).
 """
 from __future__ import annotations
 
@@ -59,6 +64,13 @@ class SketchTopKEndpoint(MigratingSurface):
     descent has no false negatives for keys whose group values are in the
     pools.
 
+    ``mode="conservative"`` applies the Estan-Varghese update per level:
+    strictly tighter estimates, but the tables are no longer linear in the
+    stream, so such an endpoint refuses ``merge_from`` (both directions),
+    ``to_sharded`` and ``stage_block``.  ``use_update_kernel=True`` then
+    keeps the per-level conservative folds (K5i), as the reference keeps
+    its jnp folds; ``use_kernel=True`` still scores the descent with K4.
+
     ``params`` replaces the reference's jax key: a ``torch.Generator`` or
     the finest level's ``(q, r)`` arrays (e.g. a reference endpoint's
     ``state_dict()["params.q"]`` / ``["params.r"]``).  ``device=None``
@@ -70,11 +82,7 @@ class SketchTopKEndpoint(MigratingSurface):
                  use_kernel: bool = False, use_update_kernel: bool = False,
                  dtype=torch.int32, mode: str = "linear",
                  device: DeviceLike = None):
-        if mode == "conservative":
-            raise NotImplementedError(
-                "SketchTopKEndpoint mode='conservative' is not ported yet "
-                "(ROADMAP item 9)")
-        if mode != "linear":
+        if mode not in ("linear", "conservative"):
             raise ValueError(f"mode must be 'linear' or 'conservative', got {mode!r}")
         self._kh = None
         self._migration = None
@@ -90,7 +98,7 @@ class SketchTopKEndpoint(MigratingSurface):
             SpaceSaving(self.max_candidates, len(g))
             for g in base_spec.partition
         ]
-        if use_update_kernel:
+        if use_update_kernel and mode == "linear":
             # the state moves into the kernel wrapper's concatenated padded
             # table; ``state`` stays visible as a cached view of it
             self._kh = KernelHierarchy.from_state(self.hspec, self._state)
@@ -117,6 +125,8 @@ class SketchTopKEndpoint(MigratingSurface):
 
     def _ingest_active(self, items: np.ndarray, freqs: np.ndarray) -> None:
         """Fold one normalized block into the serving tables."""
+        if self.mode == "conservative":
+            sk.check_conservative_freqs(freqs, self.state.states[0].table.dtype)
         if self._kh is not None:
             # reject kernel-refused weights BEFORE touching pools or
             # totals, so a failed ingest leaves the endpoint unchanged
@@ -130,7 +140,9 @@ class SketchTopKEndpoint(MigratingSurface):
         # pad like the reference (zero-frequency rows are no-ops and stay
         # out of the pools, which were offered the unpadded block above)
         items, freqs, _ = pad_block_pow2(items, freqs, 1)
-        self.state = hh.update_jit(self.hspec, self.state, items, freqs)
+        fold = (hh.update_conservative_jit if self.mode == "conservative"
+                else hh.update_jit)
+        self.state = fold(self.hspec, self.state, items, freqs)
 
     def ingest(self, items: np.ndarray,
                freqs: Optional[np.ndarray] = None) -> None:
@@ -151,13 +163,15 @@ class SketchTopKEndpoint(MigratingSurface):
 
         Nothing is folded and no endpoint state changes until
         :meth:`fold_staged`.  Plain linear path only: the fused update
-        kernel folds inside one launch (nothing to split).
+        kernel folds inside one launch (nothing to split) and conservative
+        updates read the tables they write (no table-free stage exists).
         """
         if self.mode != "linear" or self._kh is not None:
             raise ValueError(
-                "stage_block requires the plain linear update path: the "
-                "fused update kernel is already a single launch -- use "
-                "ingest() on that endpoint")
+                "stage_block requires the plain linear update path: "
+                "conservative updates read the tables during the fold and "
+                "the fused update kernel is already a single launch -- use "
+                "ingest() on those endpoints")
         items = np.asarray(items, dtype=np.uint32)
         if items.shape[0] == 0:
             return None
@@ -262,6 +276,15 @@ class SketchTopKEndpoint(MigratingSurface):
             min_threshold=min_threshold)
 
     def to_sharded(self, *args, **kwargs):
+        """Promotion to a sharded service: not ported yet.  A conservative
+        endpoint refuses first, as the reference does: its tables must
+        never enter the psum sync path."""
+        require_not_migrating(self._migration, "SketchTopKEndpoint.to_sharded")
+        if self.mode != "linear":
+            raise ValueError(
+                "to_sharded is only defined for linear endpoints: "
+                "conservative tables cannot be psum-merged, so a "
+                "conservative endpoint must stay single-shard")
         raise NotImplementedError(
             "SketchTopKEndpoint.to_sharded: sharded serving is not ported "
             "yet (ROADMAP item 12)")
@@ -269,6 +292,9 @@ class SketchTopKEndpoint(MigratingSurface):
     def merge_from(self, other: "SketchTopKEndpoint") -> None:
         """Fold another endpoint's sketch + pools in (cross-shard merge).
 
+        Only defined for linear endpoints: a cell-wise sum of two
+        conservatively built hierarchies is not the hierarchy of the union
+        stream, so conservative endpoints are refused (both directions).
         Shards must share the base spec and hash parameters: cell-wise
         sums of tables hashed with different params are garbage, so
         mismatches are rejected.
@@ -277,6 +303,10 @@ class SketchTopKEndpoint(MigratingSurface):
                               "SketchTopKEndpoint.merge_from")
         require_not_migrating(other._migration,
                               "SketchTopKEndpoint.merge_from (source side)")
+        if self.mode != "linear" or other.mode != "linear":
+            raise ValueError(
+                "merge_from is only defined for linear endpoints: "
+                "conservative tables cannot be merged cell-wise")
         if self.hspec.base != other.hspec.base:
             raise ValueError(
                 "merge_from requires identical base specs on both endpoints")

@@ -600,8 +600,11 @@ def test_float32_and_sharded_refusals_name_their_items():
     # the check every CUDA wrapper runs first (the card tests drive it there)
     with pytest.raises(NotImplementedError, match="item 14"):
         _cuda.require_int32_table(torch.zeros((2, 2)), "sketch_update_signed")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        KernelSketch(pspec, pp, device="cpu", mode="conservative")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # conservative mode is ported; its sharded fold refuses as the
+    # reference's does, and a conservative hierarchy is no KernelHierarchy
+    cons = KernelSketch(pspec, pp.base, device="cpu", mode="conservative")
+    with pytest.raises(ValueError, match="only defined for linear tables"):
+        cons.sharded_update(None, ("data",), np.zeros((2, 4), np.uint32), np.ones(2))
+    with pytest.raises(ValueError, match="KernelHierarchy modes"):
         KernelHierarchy(phh.HierarchySpec.from_spec(pspec), pp, device="cpu",
                         mode="conservative")

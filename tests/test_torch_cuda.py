@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4, K6-K9) against their plain PyTorch
+"""The port's CUDA kernels (K1-K9, K5i) against their plain PyTorch
 versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
@@ -7,8 +7,9 @@ tables are int32, so the tolerance is exact equality.  Each kernel is
 compared with its plain version on the same card and the same inputs, at
 small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
-multiples, int32 wraparound, negative (turnstile) frequencies and strided
-level views.
+multiples, int32 wraparound, negative (turnstile) frequencies, strided
+level views, and both residency routes of the conservative fold (K5, K5i)
+on int32 and float32 tables.
 """
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from repro_torch.kernels import hier_query as hq
 from repro_torch.kernels import hier_update as hu
 from repro_torch.kernels import sketch_query as sq
 from repro_torch.kernels import sketch_update as su
+from repro_torch.kernels import sketch_update_conservative as scu
 from repro_torch.kernels.hashes import make_plan
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
 from repro_torch.serving.sketch_engine import SketchServeEngine, SketchTopKEndpoint
@@ -403,3 +405,131 @@ def test_signed_path_kernel_equals_plain_on_card(cuda):
     assert all(_cuda.LAUNCHES[k] > 0 for k in (
         "sketch_update_signed", "sketch_query_signed", "hier_update_signed",
         "hier_query_signed"))
+
+
+# --------------------------------------------------------------------------
+# K5 / K5i: the conservative fold, on both residency routes
+# --------------------------------------------------------------------------
+
+def _cons_table(shape, dtype, seed, device):
+    """Cells near 2^31 on int32 tables (min + f wraps), small on float32."""
+    if dtype == torch.int32:
+        return _random_table(shape, seed, device, lo=(1 << 31) - (1 << 22),
+                             hi=(1 << 31) - (1 << 20))
+    return _random_table(shape, seed, device, lo=0, hi=1 << 20).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("w,ranges,route", [(3, (16, 9, 7), "shared"),
+                                            (3, (48, 90, 7), "global"),
+                                            (40, (6, 5, 3), "shared")])
+def test_k5_conservative_update_matches_plain(cuda, monkeypatch, dtype, w, ranges,
+                                              route):
+    schema = KeySchema(domains=(1 << 32, 256, 1000, 4096))
+    spec = sk.mod_sketch_spec(schema, [(1, 2), (0,), (3,)], ranges, w)
+    hspec = hh.HierarchySpec.from_spec(spec)
+    plan = make_plan(spec)
+    params = _params(spec, 30, cuda)
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    assert scu.residency(w, h_pad, 4) == route
+    items, freqs = _block(hspec, 3000, 31)
+    freqs = freqs * 64                                # large enough to wrap
+    chunks = spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(cuda))
+    f = torch.from_numpy(freqs).to(cuda)
+    base = _cons_table((w, h_pad), dtype, 32, cuda)
+    n0 = _cuda.LAUNCHES["sketch_update_conservative"]
+    got = scu.sketch_update_conservative(plan, base.clone(), chunks, f, params.q, params.r)
+    want = scu.sketch_update_conservative_ref(plan, base.clone(), chunks, f, params.q,
+                                              params.r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sketch_update_conservative"] == n0 + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, base)
+    if route == "shared":                             # the global route agrees
+        monkeypatch.setattr(scu, "residency", lambda *args, **kw: "global")
+        again = scu.sketch_update_conservative(plan, base.clone(), chunks, f,
+                                               params.q, params.r)
+        assert torch.equal(again, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k5i_folds_every_level_in_one_launch(cuda, dtype):
+    hspec = _hspec(w=4)
+    params = _params(hspec.levels[-1], 33, cuda)
+    state = hh.init_hierarchy(hspec, params, dtype=dtype, device=cuda)
+    for st, seed in zip(state.states, (34, 35, 36)):
+        st.table.copy_(_cons_table(tuple(st.table.shape), dtype, seed, cuda))
+    routes = [scu.residency(4, st.table.shape[1], 4) for st in state.states]
+    assert "shared" in routes and "global" in routes
+    items, freqs = _block(hspec, 4000, 37)
+    idxs = hh.hierarchy_indices(hspec, params, items)
+    f = torch.from_numpy(freqs * 64).to(cuda)
+    got = [st.table.clone() for st in state.states]
+    want = [st.table.clone() for st in state.states]
+    n0 = _cuda.LAUNCHES["conservative_fold"]
+    scu.conservative_fold_tables(got, idxs, f)
+    scu.conservative_fold_tables_ref(want, idxs, f)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["conservative_fold"] == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # the hierarchy's in-place fold is the same launch
+    hh.update_conservative_jit(hspec, state, items, freqs * 64)
+    assert _cuda.LAUNCHES["conservative_fold"] == n0 + 2
+    for st, b in zip(state.states, want):
+        assert torch.equal(st.table, b)
+
+
+def test_conservative_wrappers_refuse_what_they_do_not_take(cuda):
+    spec = _hspec().levels[-1]
+    plan = make_plan(spec)
+    params = _params(spec, 38, cuda)
+    items, freqs = _block(_hspec(), 64, 39)
+    chunks = spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(cuda))
+    f = torch.from_numpy(freqs).to(cuda)
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    with pytest.raises(ValueError, match="int32 or float32 tables"):
+        scu.sketch_update_conservative(
+            plan, torch.zeros((spec.width, h_pad), dtype=torch.int64, device=cuda),
+            chunks, f, params.q, params.r)
+    table = torch.zeros((spec.width, h_pad), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="do not match"):
+        scu.sketch_update_conservative(plan, table, chunks, f[:10], params.q, params.r)
+    idx = torch.zeros((spec.width, 64), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="table 1 is not"):
+        scu.conservative_fold_tables([table, table.float()], [idx, idx], f)
+    with pytest.raises(ValueError, match="contiguous int64"):
+        scu.conservative_fold_tables([table], [idx.to(torch.int32)], f)
+
+
+def test_conservative_paths_equal_plain_paths_on_card(cuda):
+    wl = zipf_hh_workload(n_src=300, n_tgt=600, n_edges=3000, n_occurrences=30_000,
+                          seed=4)
+    spec = sk.mod_sketch_spec(wl.stream.schema, [(0,), (1,)], (64, 32), 3)
+    params = _params(spec, 40, "cpu")
+    ep_k = SketchTopKEndpoint(spec, params, max_candidates_per_group=150,
+                              use_kernel=True, mode="conservative", device=cuda)
+    ep_p = SketchTopKEndpoint(spec, params, max_candidates_per_group=150,
+                              mode="conservative", device="cpu")
+    eng = SketchServeEngine(ep_k)
+    ks_k = KernelSketch(spec, params, mode="conservative", device=cuda, block_b=700)
+    ks_p = KernelSketch(spec, params, mode="conservative", device="cpu", block_b=700)
+    n0 = dict(_cuda.LAUNCHES)
+    for s in range(0, wl.stream.items.shape[0], 1000):
+        blk = (wl.stream.items[s:s + 1000], wl.stream.freqs[s:s + 1000])
+        eng.ingest(*blk)
+        ep_p.ingest(*blk)
+        ks_k.update(*blk)
+        ks_p.update(*blk)
+    assert _cuda.LAUNCHES["conservative_fold"] > n0["conservative_fold"]
+    assert _cuda.LAUNCHES["sketch_update_conservative"] > n0["sketch_update_conservative"]
+    sd_k, sd_p = ep_k.state_dict(), ep_p.state_dict()
+    for key in sd_p:
+        assert np.array_equal(sd_k[key], sd_p[key]), key
+    thr = wl.stream.total // 200
+    for a, b in ((eng.heavy_hitters(thr), ep_p.heavy_hitters(thr)),
+                 (eng.topk(10), ep_p.topk(10))):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    assert torch.equal(ks_k.table.cpu(), ks_p.table)
+    q = wl.stream.items[:500]
+    assert np.array_equal(ks_k.query(q), ks_p.query(q))

@@ -349,7 +349,7 @@ def test_kernel_hierarchy_from_reference_state():
     _assert_tables_equal(rstate, kh.state())
     with pytest.raises(ValueError, match="negative frequencies"):
         kh.update(items[:3], np.array([1, -1, 2]))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="conservative hierarchies take"):
         KernelHierarchy(pspec, (fine.q, fine.r), device="cpu", mode="conservative")
     with pytest.raises(ValueError, match="need 3 level tables"):
         interop.hierarchy_state_from_numpy(pspec, np.asarray(fine.q),

@@ -69,6 +69,9 @@ def _entry_points():
     from repro_torch.core import hierarchy as hh
     from repro_torch.core import sketch as sk
     from repro_torch.core.hashing import KeySchema
+    from repro_torch.core.exhaustive import exhaustive_config
+    from repro_torch.core.greedy import greedy_config
+    from repro_torch.core.selection import choose_sketch, migration_gain
     from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
     from repro_torch.serving.sketch_engine import SketchTopKEndpoint
 
@@ -90,13 +93,22 @@ def _entry_points():
         "build_sketch": lambda: sk.build_sketch(spec, gen, items, freqs),
         "params_from_numpy": lambda: interop.params_from_numpy(
             np.zeros((2, 2), np.uint32), np.zeros((2, 2), np.uint32)),
+        "SketchTopKEndpoint_conservative": lambda: SketchTopKEndpoint(
+            spec, gen, mode="conservative"),
+        "KernelSketch_conservative": lambda: KernelSketch(spec, gen, mode="conservative"),
+        "choose_sketch": lambda: choose_sketch(items, freqs, spec.schema, 64, 2),
+        "migration_gain": lambda: migration_gain(spec, spec, items, freqs),
+        "greedy_config": lambda: greedy_config(items, freqs, spec.schema, 64, 2),
+        "exhaustive_config": lambda: exhaustive_config(items, freqs, spec.schema, 64, 2),
     }
 
 
 @pytest.mark.parametrize("name", sorted(
     ["SketchTopKEndpoint", "KernelSketch", "KernelHierarchy", "init_hierarchy",
      "build_hierarchy", "init_state", "build_sketch", "params_from_numpy",
-     "KernelSketch_signed", "KernelHierarchy_signed", "countsketch.init_hierarchy"]))
+     "KernelSketch_signed", "KernelHierarchy_signed", "countsketch.init_hierarchy",
+     "SketchTopKEndpoint_conservative", "KernelSketch_conservative", "choose_sketch",
+     "migration_gain", "greedy_config", "exhaustive_config"]))
 def test_entry_points_without_a_card_raise(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

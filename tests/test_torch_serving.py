@@ -230,9 +230,12 @@ def test_engine_snapshot_is_a_copy_and_staleness_contract():
 def test_unported_surfaces_refuse_by_roadmap_item():
     wl, _, port = _pair()
     base = port.hspec.base
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pse.SketchTopKEndpoint(base, torch.Generator(), mode="conservative",
-                               device="cpu")
+    # conservative mode is ported (tests/test_torch_conservative.py): it
+    # refuses the unported sharded surfaces for its own reason first
+    cons = pse.SketchTopKEndpoint(base, torch.Generator(), mode="conservative",
+                                  device="cpu")
+    with pytest.raises(ValueError, match="single-shard"):
+        cons.to_sharded(None)
     with pytest.raises(ValueError, match="mode must be"):
         pse.SketchTopKEndpoint(base, torch.Generator(), mode="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -172,8 +172,11 @@ def test_kernel_sketch_guards_match_reference():
         assert str(got.value) == str(want.value)
     assert int(ks.table.abs().sum()) == 0              # refused = untouched
     pops.check_linear_kernel_freqs(np.array([-5, 1 << 30]), torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pops.KernelSketch(pspec, (pp.q, pp.r), device="cpu", mode="conservative")
+    cons = pops.KernelSketch(pspec, (pp.q, pp.r), device="cpu", mode="conservative")
+    with pytest.raises(ValueError, match="non-negative"):     # its own refusal
+        cons.update(items, np.array([1, 2, -3, 4]))
+    cons.update(items, np.array([1, 1 << 24, 1, 1]))          # no limb split
+    assert int(cons.table.max()) == 1 << 24
     signed = pops.KernelSketch(pspec, (pp.q, pp.r, pp.q, pp.r), device="cpu",
                                mode="signed")
     signed.update(items, np.array([1, 2, -3, 4]))      # turnstile: accepted
