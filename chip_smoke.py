@@ -41,17 +41,34 @@ Phases, any failure of which exits non-zero:
    flat conservative ``KernelSketch`` (K5, global route); no false
    negatives, the answer a subset of the linear main path's at the same
    threshold, and every table <= its linear twin cell by cell;
-3. hold each kernel (K1-K9, K5i) against its plain version on the card
-   at the shapes its path gives it (int32: bit-identical), K5 on both
-   residency routes;
+   Then the float32 tables: the main stream into a float32 flat sketch
+   (K1f) and a float32 hierarchy (K3f), the turnstile stream into a
+   float32 signed flat sketch (K6f); every partial sum stays below 2^24
+   (checked), so each equals its int32 twin bit for bit.  Then the
+   training path: ``train()`` on starcoder2-7b at its published width
+   (d_model 4,608, 36 heads, 4 KV heads, d_ff 18,432, vocab 49,152),
+   depth cut to 2 layers, 5 steps of 8 x 1,024 tokens with gradient
+   compression (each of 9 large leaves folded by one K8f launch a step)
+   and the in-step bigram sketch (K1) on: finite losses, bigram rows
+   summing to 5 x 8 x 1,023, tokens/s, each step's split into
+   forward+backward, compression, optimizer and n-gram fold (CUDA
+   events), peak memory; then one more gradient through every compressed
+   leaf: exactly k distinct coordinates, ``corrected == dense +
+   residual`` exactly, and K8f against its plain version on that real
+   gradient within 2^-10 of the sum of |v| per cell;
+3. hold each kernel (K1-K9, K5i, K1f, K3f, K6f, K8f) against its plain
+   version on the card at the shapes its path gives it (int32 and
+   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5 on
+   both residency routes;
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
    torch.profiler; set both beside the least time the card could take,
    and K5/K5i also beside their chain bound (B dependent steps of one
    table load and a warp minimum, each step measured by a probe kernel);
-5. drive the main path, the turnstile path and the conservative path once
-   more under torch.profiler for the device's busy and idle share.
+5. drive the main path, the turnstile path, the conservative path and one
+   train step once more under torch.profiler for the device's busy and
+   idle share.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -60,7 +77,9 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -71,6 +90,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import tree as tr  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import countsketch as cs  # noqa: E402
 from repro_torch.core import hierarchy as hh  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
@@ -86,6 +107,7 @@ from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving.sketch_engine import (  # noqa: E402
     SketchServeEngine,
     SketchTopKEndpoint,
@@ -96,9 +118,13 @@ from repro_torch.streams import (  # noqa: E402
     observed_error,
     zipf_graph_stream,
 )
+from repro_torch.training import grad_compression as gc  # noqa: E402
+from repro_torch.training import optimizer as opt  # noqa: E402
+from repro_torch.training import train_loop as tl  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
-# the non-tensor 32-bit ALU rate, used for the kernels' integer operations
+# the non-tensor 32-bit ALU rate, used for the kernels' integer and float
+# operations
 MEM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
@@ -116,6 +142,15 @@ STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
               n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)
 # the accuracy path: examples/quickstart.py's table, sample and query sets
 H_ACC, W_ACC, SAMPLE, N_QUERIES = 4096, 5, 0.02, 500
+# the training path: starcoder2-7b at its published width, depth cut to 2
+# layers (32 would need 56 GB for the float32 Adam moments alone)
+TRAIN_ARCH, TRAIN_LAYERS = "starcoder2-7b", 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+# K8f on the real gradient: |kernel - plain| <= REAL_GRAD_TOL * sum |v| per
+# cell (float atomics add in another order; a level-0 cell sums ~10^5
+# values, whose float32 sum in any order is off by far less)
+REAL_GRAD_TOL = 2.0 ** -10
+PLAIN_CHUNK = 1 << 25
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -132,6 +167,12 @@ KERNELS = {
                                    "src/repro/kernels/sketch_update_conservative.py:114"),
     # no Pallas kernel computes this fold: the reference's jnp fori_loop
     "conservative_fold": ("conservative_kernels.cu", "src/repro/core/sketch.py:253"),
+    # the float32 table bodies of K1, K3, K6 and K8
+    "sketch_update_f32": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:60"),
+    "hier_update_f32": ("sketch_kernels.cu", "src/repro/kernels/hier_update.py:161"),
+    "sketch_update_signed_f32": ("signed_kernels.cu",
+                                 "src/repro/kernels/sketch_update.py:99"),
+    "hier_update_signed_f32": ("signed_kernels.cu", "src/repro/kernels/hier_update.py:293"),
 }
 
 
@@ -244,14 +285,14 @@ def param_bytes(q: torch.Tensor, r: torch.Tensor) -> int:
 
 
 class Recorded:
-    """Records the inputs of every call of a grid wrapper (``module.name``)
-    while installed, so its kernel is checked and timed at the shapes the
-    path gives it.  It wraps the wrapper and counts nothing: the launch
-    count stays the wrapper's own."""
+    """Records the inputs (and results) of every call of a function
+    (``module.name``) while installed, so a kernel is checked and timed at
+    the shapes the path gives it.  It wraps the wrapper and counts nothing:
+    the launch count stays the wrapper's own."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
-        self.calls = []
+        self.calls, self.results = [], []
         self._orig = None
 
     def __enter__(self):
@@ -259,7 +300,9 @@ class Recorded:
 
         def recording(*args):
             self.calls.append(args)
-            return self._orig(*args)
+            out = self._orig(*args)
+            self.results.append(out)
+            return out
 
         setattr(self.module, self.name, recording)
         return self
@@ -283,6 +326,49 @@ class Recorded:
         p, c = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
         return (p, c), next(call for call in self.calls
                             if (call[1].shape[1], call[2].shape[1]) == (p, c))
+
+
+class Timed:
+    """Records a CUDA event just before and just after every call of a
+    function (``module.name``) while installed: a phase of the train step
+    is timed by wrapping the function that does it, with no hook in the
+    library."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.events = []
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._orig)
+
+
+def step_split(loss, comp, optim, grams, fold) -> list:
+    """Each train step's phases in ms from the events of :class:`Timed`:
+    forward+backward from the loss's start to the compressor's, then the
+    compressor, the optimizer, and the n-gram fold from its bigrams to the
+    end of its K1 launch."""
+    return [{"forward_backward": l[0].elapsed_time(c[0]),
+             "compression": c[0].elapsed_time(c[1]),
+             "optimizer": o[0].elapsed_time(o[1]),
+             "ngram": g[0].elapsed_time(f[1])}
+            for l, c, o, g, f in zip(loss.events, comp.events, optim.events,
+                                     grams.events, fold.events, strict=True)]
 
 
 def hash_ops(plan, n_keys: int) -> int:
@@ -625,6 +711,214 @@ def conservative_path(spec, params, stream, thr, exact_items, lin_answer, lin_st
            "flat_ingest_s": t_flat, "flat_ingest_rows_per_s": items.shape[0] / t_flat,
            "level_routes": routes}
     return ep, ks, launches, e2e
+
+
+# --------------------------------------------------------------------------
+# the float32 tables (K1f, K3f, K6f) and the training path (K8f, K1)
+# --------------------------------------------------------------------------
+
+def float32_path(spec, hspec, params, cs_params, stream, turnstile, ks, ks_s):
+    """The main stream into a float32 flat sketch (K1f) and a float32
+    hierarchy (K3f), the turnstile stream into a float32 signed flat sketch
+    (K6f).  The frequencies are integers, so wherever every cell's partial
+    sums stay below 2^24 (checked here) each float32 table equals its int32
+    twin of the same stream bit for bit."""
+    items, freqs = stream.items, stream.freqs
+    t_items, t_freqs, _ = turnstile
+    i_hier = KernelHierarchy(hspec, params, block_b=BLOCK)
+    ingest_blocks(i_hier, items, freqs)
+    # sum |f| per cell bounds every partial sum of the signed table
+    magnitude = KernelSketch(spec, params, block_b=BLOCK)
+    ingest_blocks(magnitude, t_items, np.abs(t_freqs))
+    _cuda.reset_launches()
+    f_flat = KernelSketch(spec, params, block_b=BLOCK, dtype=torch.float32)
+    f_hier = KernelHierarchy(hspec, params, block_b=BLOCK, dtype=torch.float32)
+    f_signed = KernelSketch(spec, cs_params, block_b=BLOCK, dtype=torch.float32,
+                            mode="signed")
+    _, t_flat = wall(lambda: ingest_blocks(f_flat, items, freqs))
+    _, t_hier = wall(lambda: ingest_blocks(f_hier, items, freqs))
+    _, t_signed = wall(lambda: ingest_blocks(f_signed, t_items, t_freqs))
+    launches = dict(_cuda.LAUNCHES)
+    log(f"float32 path launches: {launches}")
+    n_main, n_turn = -(-items.shape[0] // BLOCK), -(-t_items.shape[0] // BLOCK)
+    for name, kid, n in (("sketch_update_f32", "K1f", n_main), ("hier_update_f32", "K3f", n_main),
+                         ("sketch_update_signed_f32", "K6f", n_turn)):
+        check(launches[name] == n > 0, f"{kid} ({name}) launched once per block on the "
+              f"float32 path ({launches[name]} of {n})")
+    check(launches["sketch_update"] == launches["hier_update"]
+          == launches["sketch_update_signed"] == 0, "no int32 fold ran on the float32 path")
+    limit = 1 << 24
+    check(int(ks.table.max()) < limit and int(i_hier.table.max()) < limit,
+          "insert-only tables: every cell, hence every partial sum, below 2^24")
+    check(int(magnitude.table.max()) < limit,
+          "turnstile: the sum of |f| into every cell below 2^24")
+    check(torch.equal(f_flat.table, ks.table.to(torch.float32)),
+          "float32 flat table (K1f) equals the int32 one (K1) bit for bit")
+    check(torch.equal(f_hier.table, i_hier.table.to(torch.float32)),
+          "float32 hierarchy (K3f) equals the int32 one (K3) bit for bit")
+    check(torch.equal(f_signed.table, ks_s.table.to(torch.float32)),
+          "float32 signed flat table (K6f) equals the int32 one (K6) bit for bit")
+    e2e = {"flat_rows_per_s": items.shape[0] / t_flat,
+           "hier_rows_per_s": items.shape[0] / t_hier,
+           "signed_rows_per_s": t_items.shape[0] / t_signed,
+           "max_cell": int(i_hier.table.max()),
+           "max_turnstile_magnitude": int(magnitude.table.max())}
+    return f_flat, f_hier, f_signed, launches, e2e
+
+
+def train_setup():
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    tcfg = tl.TrainConfig(optimizer=opt.OptimizerConfig(lr=1e-3, warmup_steps=0),
+                          compression=gc.CompressionConfig(enabled=True))
+    return cfg, tcfg
+
+
+def training_path(seed):
+    """``train()`` on starcoder2-7b at its full width, 2 layers, 5 steps of
+    8 x 1,024 tokens, gradient compression (K8f) and the in-step n-gram
+    sketch (K1) on; each step split by CUDA events into its phases."""
+    cfg, tcfg = train_setup()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state, t_init = wall(lambda: tl.init_train_state(cfg, tcfg, gen, DEVICE))
+    with (Timed(tfm, "loss_fn") as loss, Timed(tl, "compress_decompress") as comp,
+          Timed(opt, "apply_updates") as optim, Timed(tl.ngram, "ngram_items") as grams,
+          Timed(tl, "sketch_update") as fold):
+        _cuda.reset_launches()
+        (state, hist), t_train = wall(lambda: tl.train(
+            cfg, tcfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, state, log_every=1))
+        launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    split = step_split(loss, comp, optim, grams, fold)
+    comps = [(path, c) for path, c in tr.flatten(state["compression"].compressors)
+             if c is not None]
+    log(f"training path launches: {launches}")
+    log(f"losses {hist['loss']}; step seconds {hist['step_time_s']}")
+    log(f"step split (ms): {split}")
+    check(len(hist["loss"]) == TRAIN_STEPS and all(np.isfinite(hist["loss"])),
+          "every loss is finite")
+    check(launches["hier_update_signed_f32"] == len(comps) * TRAIN_STEPS > 0,
+          f"K8f (hier_update_signed_f32) folded each of the {len(comps)} compressed "
+          f"leaves once a step ({launches['hier_update_signed_f32']} launches)")
+    check(launches["sketch_update"] == TRAIN_STEPS,
+          "K1 (sketch_update) folded each step's bigrams once")
+    sums = state["sketch_table"].to(torch.int64).sum(dim=1)
+    want = TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ - 1)
+    check(bool((sums == want).all()), f"every n-gram row sums to {want}")
+    check(torch.equal(state["sketch_table"], plain_bigram_table(cfg, state)),
+          "K1's n-gram table equals the plain fold of the same steps' bigrams")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = hist["step_time_s"][1:]
+    log(f"training: {TRAIN_STEPS * tokens / sum(hist['step_time_s']):.1f} tokens/s "
+        f"({len(steady) * tokens / sum(steady):.1f} after the first step); peak "
+        f"memory {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    e2e = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "d_model": cfg.d_model,
+           "params": tfm.param_count(state["params"]), "compressed_leaves": len(comps),
+           "compression_ratio": gc.compression_ratio(tcfg.compression, state["params"]),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": hist["loss"], "step_time_s": hist["step_time_s"],
+           "tokens_per_s": TRAIN_STEPS * tokens / sum(hist["step_time_s"]),
+           "tokens_per_s_after_first": len(steady) * tokens / sum(steady),
+           "step_split_ms": split, "init_s": t_init, "train_s": t_train,
+           "peak_memory_gb": peak / 1e9}
+    return cfg, tcfg, state, launches, e2e
+
+
+def plain_bigram_table(cfg, state) -> torch.Tensor:
+    """The training phase's n-gram table rebuilt by K1's plain version on a
+    zero [w, h] table: the same steps' batches, bigrams and (q, r), freqs 1."""
+    spec = tl.make_sketch_spec(cfg)
+    plan = tl.make_plan(spec)
+    q, r = state["sketch_params"]
+    table = torch.zeros_like(state["sketch_table"])
+    data = tl.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    for step in range(TRAIN_STEPS):
+        tokens = torch.from_numpy(data(step)["tokens"]).to(table.device)
+        grams = tl.ngram.ngram_items(tokens, cfg.sketch_ngrams)
+        freqs = torch.ones((grams.shape[0],), dtype=table.dtype, device=table.device)
+        su.sketch_update_ref(plan, table, spec.schema.module_chunks(grams), freqs, q, r)
+    return table
+
+
+def plain_signed_fold(hplan, table, chunks, vals, q, r, s_q, s_r):
+    """K8's plain version over a long block, a chunk of keys at a time (the
+    fold is additive in the keys, so for integer values the table is the
+    same; it bounds the plain version's int64 temporaries)."""
+    for s in range(0, chunks.shape[0], PLAIN_CHUNK):
+        hu.hier_update_signed_ref(hplan, table, chunks[s : s + PLAIN_CHUNK],
+                                  vals[s : s + PLAIN_CHUNK], q, r, s_q, s_r)
+    return table
+
+
+def leaf_chunks(comp):
+    """A compressed leaf's coordinates as the K8 wrapper's int64 chunks."""
+    hspec = comp.plan.hspec
+    items = hspec.level_items(hspec.n_levels - 1, comp.coords.to(torch.int64))
+    return hspec.levels[-1].schema.module_chunks(items)
+
+
+def k8f_real_gradient(comp, vals) -> float:
+    """K8f against its plain version on a real corrected gradient: the
+    largest |kernel - plain| over the sum of |v| into that cell."""
+    hplan = hu.make_hier_plan(comp.plan.hspec, tile_h=1)
+    (q, r), s_q, s_r = comp.params
+    chunks = leaf_chunks(comp)
+    w = comp.plan.hspec.base.width
+    got = torch.zeros((w, hplan.padded_cols), device=DEVICE)
+    hu.hier_update_signed(hplan, got, chunks, vals, q, r, s_q, s_r)
+    want = plain_signed_fold(hplan, torch.zeros_like(got), chunks, vals, q, r, s_q, s_r)
+    mag = torch.zeros_like(got)
+    for s in range(0, chunks.shape[0], PLAIN_CHUNK):
+        hu.hier_update_ref(hplan, mag, chunks[s : s + PLAIN_CHUNK],
+                           vals[s : s + PLAIN_CHUNK].abs(), q, r)
+    diff = (got - want).abs()
+    check(bool((diff[mag == 0] == 0).all()), "K8f: untouched cells stay 0")
+    return float((diff / mag.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def compression_checks(cfg, tcfg, state):
+    """One more gradient (the next step's batch, at the trained params)
+    through every compressed leaf: exactly k distinct coordinates are
+    selected, ``corrected == dense + residual`` exactly, the output holds
+    the corrected values there and 0 elsewhere; and K8f on that real
+    gradient against its plain version within REAL_GRAD_TOL."""
+    batch = tl.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)(TRAIN_STEPS)
+    tokens = torch.from_numpy(batch["tokens"]).to(DEVICE)
+    pairs = tr.flatten(state["params"])
+    paths = [path for path, _ in pairs]
+    leaves = [p.detach().requires_grad_(True) for _, p in pairs]
+    loss, _ = tfm.loss_fn(cfg, tr.unflatten(zip(paths, leaves)), tokens)
+    grads = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+    del leaves, loss
+    residual = dict(tr.flatten(state["compression"].residual))
+    out = {}
+    for path, comp in tr.flatten(state["compression"].compressors):
+        if comp is None:
+            continue
+        name, k = "/".join(path), comp.plan.k
+        g, r = grads[path], residual[path]
+        with Recorded(gc, "_descend_topk") as sel:
+            dense, new_r = gc._compress_leaf(tcfg.compression, comp, g, r)
+        corrected = g.to(torch.float32) + r
+        check(torch.equal(dense + new_r, corrected),
+              f"{name}: corrected == dense + residual exactly")
+        coords = sel.results[0]
+        check(coords.numel() == k and int(torch.unique(coords).numel()) == k,
+              f"{name}: exactly k = {k} distinct coordinates selected")
+        flat_d, flat_c = dense.reshape(-1), corrected.reshape(-1)
+        chosen = torch.zeros(flat_d.shape, dtype=torch.bool, device=DEVICE)
+        chosen[coords] = True
+        check(torch.equal(flat_d[coords], flat_c[coords]) and not bool(flat_d[~chosen].any()),
+              f"{name}: the output holds the corrected values at the k coordinates, "
+              "0 elsewhere")
+        ratio = k8f_real_gradient(comp, flat_c)
+        check(ratio <= REAL_GRAD_TOL, f"{name}: K8f within {REAL_GRAD_TOL} of sum |v| "
+              f"per cell of its plain version on the real gradient ({ratio})")
+        out[name] = {"shape": list(comp.plan.shape), "k": k, "beam": comp.plan.beam,
+                     "nonzeros": int((flat_d != 0).sum()), "k8f_err_over_abs_sum": ratio}
+        del dense, new_r, corrected, flat_d, flat_c, chosen, sel
+    log(f"compression checks: {out}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -973,6 +1267,145 @@ def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
     kr.rows.append(row)
 
 
+def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leaves):
+    """K1f, K3f and K6f on the first 65,536-row block into copies of the
+    float32 path's live tables; K8f at every compressed leaf's shape of the
+    training path, timed at the largest.  Values are integers, so each is
+    bit-identical to its plain version."""
+    dev = torch.device(DEVICE)
+    blk_items = stream.items[:BLOCK]
+    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.float32)
+
+    # K3f: the float32 hierarchy
+    q, r = f_hier.params
+    hplan, table = f_hier.hplan, f_hier.table
+    ordered = hspec.level_items(hspec.n_levels - 1, as_index_tensor(blk_items, dev))
+    chunks = hspec.levels[-1].schema.module_chunks(ordered)
+    w, cols = table.shape
+    idx = all_indices(hplan.plan, chunks, q, r)
+    base = torch.arange(w, device=dev)[:, None] * cols
+    flat = torch.cat([(base + idx // d + o).reshape(-1)
+                      for o, d in zip(hplan.level_offsets, hplan.level_divs)])
+    f_all = f.expand(w * hplan.n_levels, BLOCK).reshape(-1)
+    touched = int(torch.unique(flat[f_all != 0]).numel())
+    scratch = table.clone()
+    kr.add("hier_update_f32", "sk_hier_update_kernel<float>",
+           err=max_abs_err(hu.hier_update(hplan, table.clone(), chunks, f, q, r),
+                           hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
+           call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
+           plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + 8 * touched,
+           n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
+           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, float32")
+    del scratch
+
+    # K1f: the float32 flat sketch
+    plan, ftable = f_flat.plan, f_flat.table
+    fchunks = f_flat.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
+    w, h_pad = ftable.shape
+    idx = all_indices(plan, fchunks, q, r)
+    flat = (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)
+    f_all = f.expand(w, BLOCK).reshape(-1)
+    touched = int(torch.unique(flat[f_all != 0]).numel())
+    scratch = ftable.clone()
+    kr.add("sketch_update_f32", "sk_update_kernel<float>",
+           err=max_abs_err(su.sketch_update(plan, ftable.clone(), fchunks, f, q, r),
+                           su.sketch_update_ref(plan, ftable.clone(), fchunks, f, q, r)),
+           call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
+           plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+           n_bytes=key_bytes(f_flat.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+           + 8 * touched,
+           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+           shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32")
+    del scratch
+
+    # K6f: the float32 signed flat sketch, the turnstile's first block
+    t_items, t_freqs, _ = turnstile
+    (q, r), s_q, s_r = f_signed.cs_params
+    tf = torch.from_numpy(t_freqs[:BLOCK]).to(dev, torch.float32)
+    plan, stable = f_signed.plan, f_signed.table
+    tchunks = f_signed.spec.schema.module_chunks(as_index_tensor(t_items[:BLOCK], dev))
+    idx = all_indices(plan, tchunks, q, r)
+    bits = all_sign_bits(plan, tchunks, s_q, s_r)
+    flat = (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)
+    vals = ((1 - 2 * ((bits >> (len(plan.ranges) - 1)) & 1)).to(torch.float32)
+            * tf).reshape(-1)
+    touched = int(torch.unique(flat[vals != 0]).numel())
+    scratch = stable.clone()
+    kr.add("sketch_update_signed_f32", "sk_update_signed_kernel<float>",
+           err=max_abs_err(
+               su.sketch_update_signed(plan, stable.clone(), tchunks, tf, q, r, s_q, s_r),
+               su.sketch_update_signed_ref(plan, stable.clone(), tchunks, tf, q, r,
+                                           s_q, s_r)),
+           call=lambda: su.sketch_update_signed(plan, scratch, tchunks, tf, q, r, s_q, s_r),
+           plain=lambda: su.sketch_update_signed_ref(plan, scratch, tchunks, tf, q, r,
+                                                     s_q, s_r),
+           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+           n_bytes=key_bytes(f_signed.spec.schema, BLOCK) + nbytes(tf) + param_bytes(q, r)
+           + param_bytes(s_q, s_r) + 8 * touched,
+           n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
+           shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32, {int((tf < 0).sum())} deletions")
+    del scratch, flat, vals
+
+    # K8f: every compressed leaf's shape of the training path, integer
+    # values in [-8, 8]; timed at the largest leaf
+    gen = torch.Generator(device=dev).manual_seed(14)
+    errs, per_leaf = [], {}
+    for name, comp in leaves:
+        hplan = hu.make_hier_plan(comp.plan.hspec, tile_h=1)
+        (q, r), s_q, s_r = comp.params
+        chunks = leaf_chunks(comp)
+        n = chunks.shape[0]
+        v = torch.randint(-8, 9, (n,), generator=gen, device=dev).to(torch.float32)
+        zero = torch.zeros((comp.plan.hspec.base.width, hplan.padded_cols), device=dev)
+        got = hu.hier_update_signed(hplan, zero.clone(), chunks, v, q, r, s_q, s_r)
+        want = plain_signed_fold(hplan, zero.clone(), chunks, v, q, r, s_q, s_r)
+        errs.append(max_abs_err(got, want))
+        per_leaf[name] = {"keys": n, "cold_ms": cold_ms(
+            lambda: hu.hier_update_signed(hplan, zero, chunks, v, q, r, s_q, s_r), 5,
+            kr.evict)}
+        del chunks, v, got, want, zero
+    log(f"K8f per leaf: {per_leaf}")
+    name, comp = max(leaves, key=lambda nc: math.prod(nc[1].plan.shape))
+    hspec8 = comp.plan.hspec
+    hplan = hu.make_hier_plan(hspec8, tile_h=1)
+    (q, r), s_q, s_r = comp.params
+    chunks = leaf_chunks(comp)
+    n = chunks.shape[0]
+    v = torch.randint(-8, 9, (n,), generator=gen, device=dev).to(torch.float32)
+    w, cols = hspec8.base.width, hplan.padded_cols
+    table = torch.zeros((w, cols), device=dev)
+    # touched cells: a fold of the keys' nonzero marks, counted
+    marks = hu.hier_update(hplan, torch.zeros_like(table), chunks, (v != 0).float(), q, r)
+    touched = int((marks != 0).sum())
+    del marks
+    idx = all_indices(hplan.plan, chunks, q, r)
+    bits = all_sign_bits(hplan.plan, chunks, s_q, s_r)
+    base = torch.arange(w, device=dev)[:, None] * cols
+    flat = torch.cat([(base + idx // d + o).reshape(-1)
+                      for o, d in zip(hplan.level_offsets, hplan.level_divs)])
+    signed = torch.cat([((1 - 2 * ((bits >> l) & 1)).to(torch.float32) * v).reshape(-1)
+                        for l in range(hplan.n_levels)])
+    del idx, bits
+    row = kr.measure(
+        "hier_update_signed_f32", "sk_hier_update_signed_kernel<float>", err=max(errs),
+        call=lambda: hu.hier_update_signed(hplan, table, chunks, v, q, r, s_q, s_r),
+        plain=lambda: hu.hier_update_signed_ref(hplan, table, chunks, v, q, r, s_q, s_r),
+        library=lambda: table.view(-1).index_add_(0, flat, signed),
+        n_bytes=key_bytes(hspec8.base.schema, n) + nbytes(v) + param_bytes(q, r)
+        + param_bytes(s_q, s_r) + 8 * touched,
+        n_ops=2 * hash_ops(hplan.plan, n) + 4 * w * n * hplan.n_levels,
+        shape=f"{name} {list(comp.plan.shape)}: B={n} w={w} levels={hplan.n_levels} "
+              f"cols={cols}, float32; compared at all {len(leaves)} leaf shapes",
+        reps=(10, 2, 5, 10))
+    row["per_leaf"] = per_leaf
+    row["step_cold_ms"] = sum(x["cold_ms"] for x in per_leaf.values())
+    kr.rows.append(row)
+
+
 def busy_share(run) -> dict:
     """Run ``run`` under torch.profiler: the device's busy and idle share of
     its wall time, and the kernels that take the device time."""
@@ -1038,6 +1471,16 @@ def conservative_profile(spec, params, stream, thr):
     return busy_share(run)
 
 
+def training_profile(seed):
+    """One more train step at the training path's size (after one warm-up
+    step) under the profiler."""
+    cfg, tcfg = train_setup()
+    state = tl.init_train_state(cfg, tcfg,
+                                torch.Generator(device=DEVICE).manual_seed(seed + 1), DEVICE)
+    state, _ = tl.train(cfg, tcfg, 1, TRAIN_BATCH, TRAIN_SEQ, state)
+    return busy_share(lambda: tl.train(cfg, tcfg, 1, TRAIN_BATCH, TRAIN_SEQ, state))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1097,6 +1540,17 @@ def main(argv=None) -> int:
     ep_c, ks_c, cons_launches, cons_e2e = conservative_path(
         spec, params, stream, thr, exact_items, main_answer, eng.backend.state, ks)
     e2e["conservative"] = cons_e2e
+    f_flat, f_hier, f_signed, f32_launches, f32_e2e = float32_path(
+        spec, hspec, params, cs_params, stream, turnstile, ks, ks_s)
+    e2e["float32"] = f32_e2e
+
+    cfg, tcfg, state, train_launches, train_e2e = training_path(args.seed)
+    train_e2e["compression_checks"] = compression_checks(cfg, tcfg, state)
+    e2e["training"] = train_e2e
+    leaves = [("/".join(path), c) for path, c in tr.flatten(state["compression"].compressors)
+              if c is not None]
+    del state
+    torch.cuda.empty_cache()
 
     kr = KernelRows({**main_launches,
                      "sketch_update": flat_launches["sketch_update"],
@@ -1105,19 +1559,28 @@ def main(argv=None) -> int:
                      "conservative_fold": cons_launches["conservative_fold"],
                      "sketch_update_conservative": (
                          acc_launches["sketch_update_conservative"]
-                         + cons_launches["sketch_update_conservative"])})
+                         + cons_launches["sketch_update_conservative"]),
+                     **{k: f32_launches[k] for k in (
+                         "sketch_update_f32", "hier_update_f32", "sketch_update_signed_f32")},
+                     "hier_update_signed_f32": train_launches["hier_update_signed_f32"]})
     kernel_rows(kr, hspec, eng, ks, stream, grids)
     signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids)
     conservative_kernel_rows(kr, hspec, ep_c, ks_c, acc_ks, stream)
     kr.rows[-1]["launches_by_path"] = {
         "accuracy": acc_launches["sketch_update_conservative"],
         "conservative": cons_launches["sketch_update_conservative"]}
-    del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks
+    f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leaves)
+    check(len(kr.rows) == len(KERNELS) and {r["name"] for r in kr.rows} == set(KERNELS),
+          "a row for every kernel")
+    del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks, f_flat, f_hier, f_signed
+    del leaves
+    torch.cuda.empty_cache()
     e2e["profile"] = device_profile(spec, params, stream, thr)
     turn_e2e["profile"] = turnstile_profile(
         spec, hspec, cs_params, turnstile, turn_e2e["threshold"],
         group_candidates(spec, stream.items))
     cons_e2e["profile"] = conservative_profile(spec, params, stream, thr)
+    train_e2e["profile"] = training_profile(args.seed)
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

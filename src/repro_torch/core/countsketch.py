@@ -19,7 +19,8 @@ rows, computed as ``jnp.median`` does (:func:`median_rows`).
 
 This module is the plain path and keeps the reference's arithmetic: signs
 multiply values in float32 and the product is cast to the table's dtype
-(exact for |value| < 2^24).  The kernels (``kernels/ops.py``
+(exact for |value| < 2^24).  One exception: :func:`hier_fold_tables` folds
+float32 tables on the card with K8f, in one launch for all levels.  The kernels (``kernels/ops.py``
 ``mode="signed"``, K6-K9) multiply in int32 and are held to the same
 results below 2^24.  Hash params are int64 tensors, as in core/sketch.py;
 a torch generator cannot reproduce the reference's ``jax.random`` draw, so
@@ -243,14 +244,57 @@ def hier_fold_tables(hspec: hh.HierarchySpec, params: CountSketchParams,
                      values) -> Tuple[torch.Tensor, ...]:
     """Signed cascade fold: ONE hash pass (buckets + sign bits), every
     level's cells by integer division and its sign by one bit of the packed
-    parities.  Returns new tables."""
+    parities.  Returns new tables.
+
+    Float32 tables on the card (the gradient compressor's) take the kernel
+    route: every level is folded by ONE K8f launch into a new concatenated
+    ``[w, sum_L h_L]`` table, and the levels come back as views of it, which
+    the descent reads through their stride.  Other tables take the plain
+    scatter (int32 tables reach K8 through ``KernelHierarchy``)."""
     items = as_index_tensor(items, params.sign_q.device)
     fine_items = hspec.level_items(hspec.n_levels - 1, items)
+    if tables[0].is_cuda and all(t.dtype == torch.float32 for t in tables):
+        return _hier_fold_kernel(hspec, params, torch.cat(tables, dim=1),
+                                 fine_items, values)
     idxs = hh.hierarchy_indices(hspec, params.base, items)
     bits = sign_bits(hspec.levels[-1], params, fine_items)
     vals = sk.as_freqs(values, items.device).to(torch.float32)[None, :]
     return tuple(add_signed(table, idx, signs_from_bits(bits, lvl) * vals)
                  for lvl, (table, idx) in enumerate(zip(tables, idxs)))
+
+
+def hier_fold_zero_tables(hspec: hh.HierarchySpec, params: CountSketchParams,
+                          items, values) -> Tuple[torch.Tensor, ...]:
+    """:func:`hier_fold_tables` into fresh float32 zero tables (the gradient
+    compressor's sketch).  On the card the levels are views of ONE zero
+    ``[w, sum_L h_L]`` table that K8f folds in place: one allocation, no
+    copy."""
+    device = params.sign_q.device
+    if device.type != "cuda":
+        tables = tuple(torch.zeros((s.width, s.table_size), dtype=torch.float32,
+                                   device=device) for s in hspec.levels)
+        return hier_fold_tables(hspec, params, tables, items, values)
+    items = as_index_tensor(items, device)
+    table = torch.zeros((hspec.base.width, sum(s.table_size for s in hspec.levels)),
+                        dtype=torch.float32, device=device)
+    return _hier_fold_kernel(hspec, params, table,
+                             hspec.level_items(hspec.n_levels - 1, items), values)
+
+
+def _hier_fold_kernel(hspec: hh.HierarchySpec, params: CountSketchParams,
+                      table: torch.Tensor, fine_items,
+                      values) -> Tuple[torch.Tensor, ...]:
+    """K8f folds every level into ``table`` ([w, sum_L h_L] float32, levels
+    unpadded) in place; returns the level views."""
+    from repro_torch.kernels import hier_update as hu
+
+    hplan = hu.make_hier_plan(hspec, tile_h=1)       # levels unpadded
+    chunks = hspec.levels[-1].schema.module_chunks(fine_items)
+    vals = sk.as_freqs(values, table.device).to(torch.float32).contiguous()
+    hu.hier_update_signed(hplan, table, chunks, vals, params.base.q, params.base.r,
+                          params.sign_q, params.sign_r)
+    return tuple(table[:, off : off + h]
+                 for off, h in zip(hplan.level_offsets, hplan.level_sizes))
 
 
 def hier_update(hspec: hh.HierarchySpec, state: CountSketchHierarchy, items,

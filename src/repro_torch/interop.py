@@ -8,14 +8,20 @@ signed (Count-Sketch) alike.  The
 endpoints' and ``KernelSketch``'s ``load_state_dict`` also take the
 reference's own ``state_dict()`` output verbatim, and their
 ``state_dict()`` loads back into the reference.
+
+Training state crosses the same way: the reference's param tree as numpy
+(stacked blocks included, bfloat16 bit for bit), the n-gram sketch's
+``(q, r)`` and each compressed leaf's ``(q, r, sign_q, sign_r)`` keyed by
+the leaf's path in the tree.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.core import countsketch as cs
 from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
@@ -69,3 +75,77 @@ def countsketch_hierarchy_from_numpy(
     params = countsketch_params_from_numpy(q, r, sign_q, sign_r, device)
     return cs.CountSketchHierarchy(params, tuple(
         torch.from_numpy(np.array(t)).to(params.sign_q.device) for t in tables))
+
+
+# --------------------------------------------------------------------------
+# training state
+# --------------------------------------------------------------------------
+
+def tensor_from_numpy(x: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit; bfloat16 arrays (the
+    reference's ``np.asarray`` of a bf16 jax array) included."""
+    device = resolve_device(device)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(x).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def model_params_from_numpy(cfg, tree: Mapping[str, Any],
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's param tree for ``cfg`` (nested dicts of numpy
+    arrays, ``jax.tree.map(np.asarray, params)``) as the port's params.
+    Shapes and dtypes must match the port's own init for ``cfg``."""
+    from repro_torch.models import transformer as tfm
+
+    device = resolve_device(device)
+    want = dict(tr.flatten(tfm.init_params(cfg, None, "meta")))
+    got = tr.flatten(tree)
+    if sorted(want) != [path for path, _ in got]:
+        raise ValueError(f"param tree paths differ from {cfg.name}'s: "
+                         f"{sorted(set(want) ^ {p for p, _ in got})}")
+    out = []
+    for path, leaf in got:
+        t = tensor_from_numpy(leaf, device)
+        if tuple(t.shape) != tuple(want[path].shape) or t.dtype != want[path].dtype:
+            raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, "
+                             f"{cfg.name} needs {tuple(want[path].shape)} "
+                             f"{want[path].dtype}")
+        out.append((path, t))
+    return tr.unflatten(out)
+
+
+def compression_state_from_numpy(ccfg, params: Mapping[str, Any],
+                                 draws: Mapping[Tuple[str, ...], Sequence[np.ndarray]]):
+    """A fresh ``CompressionState`` for the port's ``params`` from each
+    compressed leaf's ``(q, r, sign_q, sign_r)`` arrays, keyed by the
+    leaf's path -- the reference's ``init_compression`` draw."""
+    from repro_torch.training import grad_compression as gc
+
+    return gc.init_compression(ccfg, params, draws)
+
+
+def train_state_from_numpy(cfg, tcfg, params_tree: Mapping[str, Any],
+                           sketch_qr: Optional[Sequence[np.ndarray]] = None,
+                           compression_draws=None,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """A fresh train state (zero optimizer moments, empty n-gram table, zero
+    residuals) around the reference's params, n-gram sketch ``(q, r)`` and
+    per-leaf compression draws -- what the reference's
+    ``init_train_state`` builds from its key."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop as tl
+
+    params = model_params_from_numpy(cfg, params_tree, device)
+    state: Dict[str, Any] = {"params": params,
+                             "opt": opt.init_state(tcfg.optimizer, params)}
+    device = tr.leaves(params)[0].device
+    if tcfg.sketch_enabled:
+        st = sk.init_state(tl.make_sketch_spec(cfg), tuple(sketch_qr), device=device)
+        state["sketch_params"] = st.params
+        state["sketch_table"] = st.table
+    if tcfg.compression.enabled:
+        state["compression"] = compression_state_from_numpy(
+            tcfg.compression, params, compression_draws)
+    return state

@@ -40,7 +40,9 @@ LAUNCHES: Dict[str, int] = {
     "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0,
     "sketch_update_signed": 0, "sketch_query_signed": 0,
     "hier_update_signed": 0, "hier_query_signed": 0,
-    "sketch_update_conservative": 0, "conservative_fold": 0}
+    "sketch_update_conservative": 0, "conservative_fold": 0,
+    "sketch_update_f32": 0, "hier_update_f32": 0,
+    "sketch_update_signed_f32": 0, "hier_update_signed_f32": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -181,12 +183,17 @@ def _declare(lib) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     sigs = {
         "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_sketch_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
         "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
         "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
         "sk_hier_query": [vp, i64, i32, vp, i64, vp, i64, vp, vp],
         "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
+        "sk_sketch_update_signed_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, vp],
         "sk_hier_update_signed": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
+        "sk_hier_update_signed_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp,
+                                      vp],
         "sk_hier_query_signed": [vp, i64, i32, vp, vp, i64, vp, vp, i64, vp, vp],
         "sk_conservative_update_i32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
         "sk_conservative_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
@@ -227,12 +234,9 @@ def require(cond: bool, msg: str) -> None:
 
 def require_table_dtype(table: torch.Tensor, kernel: str,
                         dtypes=(torch.int32,)) -> None:
-    """The kernel's table types: int32 for K1-K4 and K6-K9, whose float32
-    bodies come with ROADMAP item 14; int32 and float32 for K5/K5i."""
-    if table.dtype == torch.float32 and torch.float32 not in dtypes:
-        raise NotImplementedError(
-            f"{kernel}: float32 tables have no CUDA kernel yet -- the f32 "
-            "variants arrive with the training slice (ROADMAP item 14)")
+    """The kernel's table types: int32 and float32 for the folds (K1, K3,
+    K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K9), as the
+    reference's query kernels."""
     require(table.dtype in dtypes,
             f"{kernel}: the CUDA kernel takes "
             f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)} "
@@ -241,6 +245,17 @@ def require_table_dtype(table: torch.Tensor, kernel: str,
 
 def require_int32_table(table: torch.Tensor, kernel: str) -> None:
     require_table_dtype(table, kernel)
+
+
+FOLD_DTYPES = (torch.int32, torch.float32)
+
+
+def fold_variant(table: torch.Tensor, name: str, symbol: str):
+    """(launch-count name, C function name, value dtype) of a fold for the
+    table's dtype: the int32 body, or its float32 twin (``*_f32``)."""
+    if table.dtype == torch.float32:
+        return f"{name}_f32", f"{symbol}_f32", torch.float32
+    return name, symbol, torch.int32
 
 
 def require_on(device: torch.device, kernel: str, **tensors) -> None:

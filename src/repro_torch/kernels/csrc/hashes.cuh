@@ -94,3 +94,9 @@ __device__ __forceinline__ uint32_t composite_sign_bits(const IndexPlanC& plan,
 __device__ __forceinline__ int32_t sk_apply_sign(int32_t v, uint32_t negative) {
   return negative ? (int32_t)(0u - (uint32_t)v) : v;
 }
+
+// The float32 form: the reference multiplies by s = +-1 in float32, which
+// is an exact negation.
+__device__ __forceinline__ float sk_apply_sign(float v, uint32_t negative) {
+  return negative ? -v : v;
+}

@@ -1,4 +1,5 @@
-// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9),
+// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K6f,
+// K8f),
 // with a plain C interface for ctypes.  Built beside sketch_kernels.cu into
 // one shared library by repro_torch/kernels/_cuda.py:
 //
@@ -19,8 +20,18 @@
 // The median over rows stays with the caller, as in the reference: K7 and
 // K9 write the signed rows.
 //
-// Tables are int32; indices, chunks and hash params int64 (the port's index
-// dtype); frequencies int32, of either sign; sign partials float32 +-1.
+// The folds K6 and K8 are templates on the table type.  On int32 tables the
+// frequencies are int32 of either sign.  On float32 tables (K6f, K8f: the
+// reference's `_update_kernel_signed_f32` and `_hier_kernel_signed_f32`
+// bodies, which fold the gradient compressor's sketches) the values are
+// float32, the sign an exact negation as the reference's s * v, and the add
+// a float atomicAdd: any order of them equals the plain version bit for bit
+// while every cell's partial sums are integers below 2^24, and agrees within
+// float32 rounding otherwise (the reference's contract, hier_update.py:35-38).
+// K7 and K9 read int32 tables only, as the reference's query kernels do.
+//
+// Indices, chunks and hash params are int64 (the port's index dtype); sign
+// partials float32 +-1.
 
 #include <cuda_runtime.h>
 
@@ -33,17 +44,18 @@ namespace {
 constexpr int kThreads = 256;
 
 // K6 replaces src/repro/kernels/sketch_update.py `sketch_update_signed_pallas`
-// (`_update_kernel_signed_int`).  table[k, idx_k(b)] += s_k(b) * f_b, one
+// (`_update_kernel_signed_int`; as K6f, `_update_kernel_signed_f32`).  table[k, idx_k(b)] += s_k(b) * f_b, one
 // thread per (row k, key b): gridDim.y = w rows, x over keys.  The flat sign
 // is the top group's bit.
 // Bound: random 4-byte read-modify-writes into a table larger than L2, as K1;
 // the sign is a second CW pass, a few dozen more integer operations per
 // (row, key).  The design hashes cell and sign once and adds with one atomic;
 // zero-frequency rows skip it.
+template <typename T>
 __global__ void sk_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
-                                        int32_t* __restrict__ table, int64_t h_pad,
+                                        T* __restrict__ table, int64_t h_pad,
                                         const int64_t* __restrict__ chunks,
-                                        const int32_t* __restrict__ freqs, int64_t n,
+                                        const T* __restrict__ freqs, int64_t n,
                                         const int64_t* __restrict__ q,
                                         const int64_t* __restrict__ r,
                                         const int64_t* __restrict__ sq,
@@ -51,8 +63,8 @@ __global__ void sk_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t k = blockIdx.y;
   if (b >= n) return;
-  const int32_t f = freqs[b];
-  if (f == 0) return;
+  const T f = freqs[b];
+  if (f == T(0)) return;
   const int64_t* x = chunks + b * plan.total_chunks;
   const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
                                        r + k * plan.n_groups);
@@ -87,7 +99,8 @@ __global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
 }
 
 // K8 replaces src/repro/kernels/hier_update.py `hier_update_signed_pallas`
-// (`_hier_kernel_signed_int`, `_tile_meta_signed`).  Folds a block into every
+// (`_hier_kernel_signed_int`, `_tile_meta_signed`; as K8f,
+// `_hier_kernel_signed_f32`).  Folds a block into every
 // level of the concatenated [w, cols] table: hash the finest index and the
 // packed sign bits once per (row k, key b), then level l adds s_l * f at
 // offsets[l] + idx / divs[l], s_l being bit l.  The finest index is below 2^31
@@ -96,11 +109,12 @@ __global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
 // larger than L2, as K3.  The design replaces the TPU kernel's per-tile
 // metadata (divisor, base column, level) and its VMEM index/sign scratch by
 // registers, and its one-hot limb matmuls by L atomics.
+template <typename T>
 __global__ void sk_hier_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
                                              const __grid_constant__ LevelsC levels,
-                                             int32_t* __restrict__ table, int64_t cols,
+                                             T* __restrict__ table, int64_t cols,
                                              const int64_t* __restrict__ chunks,
-                                             const int32_t* __restrict__ freqs, int64_t n,
+                                             const T* __restrict__ freqs, int64_t n,
                                              const int64_t* __restrict__ q,
                                              const int64_t* __restrict__ r,
                                              const int64_t* __restrict__ sq,
@@ -108,14 +122,14 @@ __global__ void sk_hier_update_signed_kernel(const __grid_constant__ IndexPlanC 
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t k = blockIdx.y;
   if (b >= n) return;
-  const int32_t f = freqs[b];
-  if (f == 0) return;
+  const T f = freqs[b];
+  if (f == T(0)) return;
   const int64_t* x = chunks + b * plan.total_chunks;
   const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
                                        r + k * plan.n_groups);
   const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
                                             sr + k * plan.n_groups);
-  int32_t* row = table + k * cols;
+  T* row = table + k * cols;
   for (int l = 0; l < levels.n_levels; ++l) {
     atomicAdd(row + levels.offsets[l] + idx / levels.divs[l],
               sk_apply_sign(f, (bits >> l) & 1u));
@@ -151,6 +165,30 @@ __global__ void sk_hier_query_signed_kernel(const int32_t* __restrict__ table,
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+template <typename T>
+int launch_update_signed(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
+                         const int64_t* chunks, const T* freqs, int64_t n, const int64_t* q,
+                         const int64_t* r, const int64_t* sq, const int64_t* sr,
+                         void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_update_signed_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, table, h_pad, chunks, freqs, n, q, r, sq, sr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, T* table,
+                              int64_t cols, int32_t w, const int64_t* chunks, const T* freqs,
+                              int64_t n, const int64_t* q, const int64_t* r,
+                              const int64_t* sq, const int64_t* sr, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_hier_update_signed_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, *levels, table, cols, chunks, freqs, n, q, r, sq, sr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -159,11 +197,14 @@ int sk_sketch_update_signed(const IndexPlanC* plan, int32_t* table, int64_t h_pa
                             const int64_t* chunks, const int32_t* freqs, int64_t n,
                             const int64_t* q, const int64_t* r, const int64_t* sq,
                             const int64_t* sr, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_update_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      *plan, table, h_pad, chunks, freqs, n, q, r, sq, sr);
-  return (int)cudaGetLastError();
+  return launch_update_signed(plan, table, h_pad, w, chunks, freqs, n, q, r, sq, sr, stream);
+}
+
+int sk_sketch_update_signed_f32(const IndexPlanC* plan, float* table, int64_t h_pad,
+                                int32_t w, const int64_t* chunks, const float* freqs,
+                                int64_t n, const int64_t* q, const int64_t* r,
+                                const int64_t* sq, const int64_t* sr, void* stream) {
+  return launch_update_signed(plan, table, h_pad, w, chunks, freqs, n, q, r, sq, sr, stream);
 }
 
 int sk_sketch_query_signed(const IndexPlanC* plan, const int32_t* table, int64_t h_pad,
@@ -182,11 +223,17 @@ int sk_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, int32_t
                           const int32_t* freqs, int64_t n, const int64_t* q,
                           const int64_t* r, const int64_t* sq, const int64_t* sr,
                           void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_hier_update_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      *plan, *levels, table, cols, chunks, freqs, n, q, r, sq, sr);
-  return (int)cudaGetLastError();
+  return launch_hier_update_signed(plan, levels, table, cols, w, chunks, freqs, n, q, r, sq,
+                                   sr, stream);
+}
+
+int sk_hier_update_signed_f32(const IndexPlanC* plan, const LevelsC* levels, float* table,
+                              int64_t cols, int32_t w, const int64_t* chunks,
+                              const float* freqs, int64_t n, const int64_t* q,
+                              const int64_t* r, const int64_t* sq, const int64_t* sr,
+                              void* stream) {
+  return launch_hier_update_signed(plan, levels, table, cols, w, chunks, freqs, n, q, r, sq,
+                                   sr, stream);
 }
 
 int sk_hier_query_signed(const int32_t* table, int64_t row_stride, int32_t w,

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the sketch hot path (K1-K4), with a plain C
+// Hand-written Hopper kernels for the sketch hot path (K1-K4, K1f, K3f), with a plain C
 // interface for ctypes.  Build:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -16,8 +16,16 @@
 // and two's-complement addition is associative, so any order of atomics gives
 // the table the jnp scatter gives, wraparound included.
 //
-// Tables are int32; indices, chunks and hash params are int64 (the port's
-// index dtype); frequencies are int32.
+// The folds K1 and K3 are templates on the table type: int32 tables take int32
+// frequencies and int32 atomics; float32 tables (K1f, K3f: the reference's
+// `_update_kernel_f32` and `_hier_kernel_f32` bodies) take float32 values and
+// float atomics.  A float atomicAdd rounds like the jnp scatter's adds but in
+// another order, so float32 tables equal the plain version bit for bit only
+// while every cell's partial sums are exact (integers below 2^24), the
+// reference's own contract (hier_update.py:35-38).  K2 and K4 read int32
+// tables only, as the reference's query kernels do.
+//
+// Indices, chunks and hash params are int64 (the port's index dtype).
 
 #include <cuda_runtime.h>
 
@@ -31,23 +39,24 @@ namespace {
 constexpr int kThreads = 256;
 
 // K1 replaces src/repro/kernels/sketch_update.py `sketch_update_pallas`
-// (`_update_kernel_int`).  table[k, idx_k(b)] += f_b, one thread per (row k,
-// key b): gridDim.y = w rows, x over keys.
+// (`_update_kernel_int`; as K1f, `_update_kernel_f32`).  table[k, idx_k(b)] +=
+// f_b, one thread per (row k, key b): gridDim.y = w rows, x over keys.
 // Bound: random 4-byte read-modify-writes into a table larger than L2 (w x h
 // cells); the hash is a few dozen integer operations per (row, key).  The
 // design hashes once per (row, key) and adds with one atomic; zero-frequency
 // pad rows skip it.
+template <typename T>
 __global__ void sk_update_kernel(const __grid_constant__ IndexPlanC plan,
-                                 int32_t* __restrict__ table, int64_t h_pad,
+                                 T* __restrict__ table, int64_t h_pad,
                                  const int64_t* __restrict__ chunks,
-                                 const int32_t* __restrict__ freqs, int64_t n,
+                                 const T* __restrict__ freqs, int64_t n,
                                  const int64_t* __restrict__ q,
                                  const int64_t* __restrict__ r) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t k = blockIdx.y;
   if (b >= n) return;
-  const int32_t f = freqs[b];
-  if (f == 0) return;
+  const T f = freqs[b];
+  if (f == T(0)) return;
   const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
                                        q + k * plan.total_chunks, r + k * plan.n_groups);
   atomicAdd(table + k * h_pad + idx, f);
@@ -77,7 +86,8 @@ __global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
 }
 
 // K3 replaces src/repro/kernels/hier_update.py `hier_update_pallas`
-// (`_hier_kernel_int`, `_local_lanes`, `_tile_meta`).  Folds a block into every
+// (`_hier_kernel_int`, `_local_lanes`, `_tile_meta`; as K3f,
+// `_hier_kernel_f32`).  Folds a block into every
 // level of the concatenated [w, cols] table: hash once per (row k, key b),
 // then level l's cell is offsets[l] + idx / divs[l].  The finest index is
 // below 2^31 (checked by make_hier_plan), so the unsigned 32-bit division
@@ -86,21 +96,22 @@ __global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
 // larger than L2.  The design shares one hash across the L levels, as the TPU
 // kernel's VMEM index scratch did, and replaces its per-tile one-hot matmuls
 // (which touched every cell of every tile) by L atomics.
+template <typename T>
 __global__ void sk_hier_update_kernel(const __grid_constant__ IndexPlanC plan,
                                       const __grid_constant__ LevelsC levels,
-                                      int32_t* __restrict__ table, int64_t cols,
+                                      T* __restrict__ table, int64_t cols,
                                       const int64_t* __restrict__ chunks,
-                                      const int32_t* __restrict__ freqs, int64_t n,
+                                      const T* __restrict__ freqs, int64_t n,
                                       const int64_t* __restrict__ q,
                                       const int64_t* __restrict__ r) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t k = blockIdx.y;
   if (b >= n) return;
-  const int32_t f = freqs[b];
-  if (f == 0) return;
+  const T f = freqs[b];
+  if (f == T(0)) return;
   const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
                                        q + k * plan.total_chunks, r + k * plan.n_groups);
-  int32_t* row = table + k * cols;
+  T* row = table + k * cols;
   for (int l = 0; l < levels.n_levels; ++l) {
     atomicAdd(row + levels.offsets[l] + idx / levels.divs[l], f);
   }
@@ -133,6 +144,28 @@ __global__ void sk_hier_query_kernel(const int32_t* __restrict__ table, int64_t 
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+template <typename T>
+int launch_update(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
+                  const int64_t* chunks, const T* freqs, int64_t n, const int64_t* q,
+                  const int64_t* r, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_update_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad,
+                                                                   chunks, freqs, n, q, r);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hier_update(const IndexPlanC* plan, const LevelsC* levels, T* table, int64_t cols,
+                       int32_t w, const int64_t* chunks, const T* freqs, int64_t n,
+                       const int64_t* q, const int64_t* r, void* stream) {
+  if (n <= 0) return 0;
+  dim3 grid(blocks_for(n), (unsigned)w);
+  sk_hier_update_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, *levels, table, cols, chunks, freqs, n, q, r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -140,11 +173,13 @@ extern "C" {
 int sk_sketch_update(const IndexPlanC* plan, int32_t* table, int64_t h_pad, int32_t w,
                      const int64_t* chunks, const int32_t* freqs, int64_t n,
                      const int64_t* q, const int64_t* r, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad, chunks,
-                                                                freqs, n, q, r);
-  return (int)cudaGetLastError();
+  return launch_update(plan, table, h_pad, w, chunks, freqs, n, q, r, stream);
+}
+
+int sk_sketch_update_f32(const IndexPlanC* plan, float* table, int64_t h_pad, int32_t w,
+                         const int64_t* chunks, const float* freqs, int64_t n,
+                         const int64_t* q, const int64_t* r, void* stream) {
+  return launch_update(plan, table, h_pad, w, chunks, freqs, n, q, r, stream);
 }
 
 int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad, int32_t w,
@@ -159,11 +194,13 @@ int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad,
 int sk_hier_update(const IndexPlanC* plan, const LevelsC* levels, int32_t* table, int64_t cols,
                    int32_t w, const int64_t* chunks, const int32_t* freqs, int64_t n,
                    const int64_t* q, const int64_t* r, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_hier_update_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, *levels, table, cols,
-                                                                     chunks, freqs, n, q, r);
-  return (int)cudaGetLastError();
+  return launch_hier_update(plan, levels, table, cols, w, chunks, freqs, n, q, r, stream);
+}
+
+int sk_hier_update_f32(const IndexPlanC* plan, const LevelsC* levels, float* table,
+                       int64_t cols, int32_t w, const int64_t* chunks, const float* freqs,
+                       int64_t n, const int64_t* q, const int64_t* r, void* stream) {
+  return launch_hier_update(plan, levels, table, cols, w, chunks, freqs, n, q, r, stream);
 }
 
 int sk_hier_query(const int32_t* table, int64_t row_stride, int32_t w, const int64_t* pp,

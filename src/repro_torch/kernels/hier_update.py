@@ -21,8 +21,16 @@ K8 is the signed fold of ``hier_update_signed_pallas``: level L adds
 Its kernel (``sk_hier_update_signed_kernel`` in ``csrc/signed_kernels.cu``)
 hashes the finest index and the sign bits once per (row, item) and issues
 one int32 ``atomicAdd`` per level; :func:`hier_update_signed_ref` is its
-plain version.  The float32 table variants of K3 and K8 arrive with the
-training slice (ROADMAP item 14).
+plain version.
+
+On float32 tables the same kernels run as K3f and K8f (the reference's
+``_hier_kernel_f32`` and ``_hier_kernel_signed_f32``): float32 values, the
+sign an exact negation, float ``atomicAdd``s.  K8f folds the gradient
+compressor's two-level sketch of every large leaf in one launch
+(core/countsketch.hier_fold_tables).  Float atomics add in any order, so
+a float32 table equals its plain version bit for bit while every cell's
+partial sums are integers below 2^24, and within float32 rounding
+otherwise: the reference's contract (hier_update.py:35-38).
 """
 from __future__ import annotations
 
@@ -107,8 +115,8 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
     table [w, hplan.padded_cols]; chunks int64[B, C] in the finest level's
     (group-major) layout; freqs [B]; q int64[w, C]; r int64[w, m] -- the
     shared family.  Zero-frequency rows are no-ops; level pad columns are
-    never hit.  CUDA tensors launch K3 (int32 tables only); CPU tensors
-    take :func:`hier_update_ref`.
+    never hit.  CUDA tensors launch K3 (int32 tables) or K3f (float32);
+    CPU tensors take :func:`hier_update_ref`.
     """
     w, cols = table.shape
     if cols != hplan.padded_cols:
@@ -117,9 +125,9 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
             f"{hplan.padded_cols}")
     if not table.is_cuda:
         return hier_update_ref(hplan, table, chunks, freqs, q, r)
-    name = "hier_update"
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r)
-    freqs = freqs.to(torch.int32)
+    name, symbol, vdtype = _cuda.fold_variant(table, "hier_update", "sk_hier_update")
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
+    freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     b = chunks.shape[0]
     _cuda.require(tuple(freqs.shape) == (b,),
@@ -128,7 +136,7 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
     levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
     lib = _cuda.library()
     with torch.cuda.device(table.device):
-        rc = lib.sk_hier_update(
+        rc = getattr(lib, symbol)(
             ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
             cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
             r.data_ptr(), _cuda.stream_of(table))
@@ -167,7 +175,8 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
 
     As :func:`hier_update`, plus the shared sign params sq int64[w, C] and
     sr int64[w, m]; freqs may be negative.  CUDA tensors launch K8 (int32
-    tables only); CPU tensors take :func:`hier_update_signed_ref`.
+    tables) or K8f (float32); CPU tensors take
+    :func:`hier_update_signed_ref`.
     """
     w, cols = table.shape
     if cols != hplan.padded_cols:
@@ -176,10 +185,11 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
             f"{hplan.padded_cols}")
     if not table.is_cuda:
         return hier_update_signed_ref(hplan, table, chunks, freqs, q, r, sq, sr)
-    name = "hier_update_signed"
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r)
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, sq, sr)
-    freqs = freqs.to(torch.int32)
+    name, symbol, vdtype = _cuda.fold_variant(table, "hier_update_signed",
+                                              "sk_hier_update_signed")
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, sq, sr, _cuda.FOLD_DTYPES)
+    freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     b = chunks.shape[0]
     _cuda.require(tuple(freqs.shape) == (b,),
@@ -188,7 +198,7 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
     levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
     lib = _cuda.library()
     with torch.cuda.device(table.device):
-        rc = lib.sk_hier_update_signed(
+        rc = getattr(lib, symbol)(
             ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
             cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
             r.data_ptr(), sq.data_ptr(), sr.data_ptr(), _cuda.stream_of(table))

@@ -6,7 +6,9 @@ Port of ``repro/kernels/ops.py``.  These adapt the ``SketchSpec`` /
 layout, sub-blocking, and state interop with the plain paths.  On CUDA
 tensors every fold and query launches a hand-written kernel (K1-K3 and
 K6-K8 here; K4 and K9 through core/hierarchy.py and core/countsketch.py);
-on CPU tensors the same calls run the kernels' plain versions.
+on CPU tensors the same calls run the kernels' plain versions.  Linear
+and signed tables may be int32 or float32 (``dtype``): float32 folds
+launch K1f, K3f, K6f and K8f, and float32 frequencies are unconstrained.
 
 ``mode="signed"`` is the Count-Sketch variant (core/countsketch.py): the
 same fold with a per-group composite +-1 sign, a median-of-rows estimator
@@ -178,14 +180,20 @@ class KernelSketch:
 
     def query_rows(self, items) -> np.ndarray:
         """Signed mode only: per-row signed estimates [w, Q] (int32 on
-        int32 tables), the medians' raw material."""
+        int32 tables, float32 on float32 tables), the medians' raw
+        material."""
         if self.mode != "signed":
             raise ValueError("query_rows is the signed-mode estimator; "
                              "linear/conservative sketches use query()")
         return self._signed_rows(items).cpu().numpy()
 
     def _signed_rows(self, items) -> torch.Tensor:
+        """K7 on int32 tables; float tables take the plain gather of
+        ``countsketch.query_rows``, as the reference's do (its K7 reads
+        int32 tables only)."""
         items = np.asarray(items, dtype=np.uint32)
+        if self.table.dtype != torch.int32:
+            return cs.query_rows(self.spec, self.cs_state(), items)[0]
         chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
         return sketch_query_signed(self.plan, self.table, chunks, self.params.q,
                                    self.params.r, self.cs_params.sign_q,

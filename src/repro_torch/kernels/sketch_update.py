@@ -5,15 +5,21 @@ TPU kernel turns the scatter into one-hot x frequency MXU matmuls with
 12-bit frequency limbs; on Hopper the kernel (``sk_update_kernel`` in
 ``csrc/sketch_kernels.cu``) hashes each (row, key) once and adds with one
 exact int32 ``atomicAdd``.  :func:`sketch_update_ref` is its plain PyTorch
-version; the wrapper runs it only for tensors on the CPU.
+version; the wrapper runs it only for tensors on the CPU.  On a float32
+table the same kernel (K1f, the reference's ``_update_kernel_f32``) adds
+float32 values with a float ``atomicAdd``.
 
 K6 is the signed (Count-Sketch) fold of ``sketch_update_signed_pallas``:
 ``cell += s_k(x) * f`` with f of either sign.  Its kernel
 (``sk_update_signed_kernel`` in ``csrc/signed_kernels.cu``) hashes the cell
 and the packed sign bits once per (row, key) and adds the signed value with
 one int32 ``atomicAdd``; :func:`sketch_update_signed_ref` is its plain
-version.  The float32 table variants of both kernels arrive with the
-training slice (ROADMAP item 14).
+version.  On a float32 table (K6f, ``_update_kernel_signed_f32``) the sign
+negates the float32 value exactly and a float ``atomicAdd`` adds it.
+
+Float atomics add in any order, so a float32 table equals its plain
+version bit for bit while every cell's partial sums are integers below
+2^24, and within float32 rounding otherwise: the reference's contract.
 """
 from __future__ import annotations
 
@@ -48,14 +54,14 @@ def sketch_update(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
     """Fold one block into ``table`` ([w, h_pad]) in place; returns it.
 
     chunks int64[B, C], freqs [B] (cast to the table dtype), q int64[w, C],
-    r int64[w, m].  CUDA tensors launch K1 (int32 tables only); CPU tensors
-    take :func:`sketch_update_ref`.
+    r int64[w, m].  CUDA tensors launch K1 (int32 tables) or K1f (float32);
+    CPU tensors take :func:`sketch_update_ref`.
     """
     if not table.is_cuda:
         return sketch_update_ref(plan, table, chunks, freqs, q, r)
-    name = "sketch_update"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
-    freqs = freqs.to(torch.int32)
+    name, symbol, vdtype = _cuda.fold_variant(table, "sketch_update", "sk_sketch_update")
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
+    freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     w, h_pad = table.shape
     b = chunks.shape[0]
@@ -65,7 +71,7 @@ def sketch_update(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
     plan_c = _cuda.plan_struct(plan)
     lib = _cuda.library()
     with torch.cuda.device(table.device):
-        rc = lib.sk_sketch_update(
+        rc = getattr(lib, symbol)(
             ctypes.byref(plan_c), table.data_ptr(), h_pad, w,
             chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(), r.data_ptr(),
             _cuda.stream_of(table))
@@ -99,14 +105,16 @@ def sketch_update_signed(plan: IndexPlan, table: torch.Tensor,
 
     As :func:`sketch_update`, plus the sign params sq int64[w, C] and sr
     int64[w, m]; freqs may be negative.  CUDA tensors launch K6 (int32
-    tables only); CPU tensors take :func:`sketch_update_signed_ref`.
+    tables) or K6f (float32); CPU tensors take
+    :func:`sketch_update_signed_ref`.
     """
     if not table.is_cuda:
         return sketch_update_signed_ref(plan, table, chunks, freqs, q, r, sq, sr)
-    name = "sketch_update_signed"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
-    _cuda.require_hash_inputs(name, plan, table, chunks, sq, sr)
-    freqs = freqs.to(torch.int32)
+    name, symbol, vdtype = _cuda.fold_variant(table, "sketch_update_signed",
+                                              "sk_sketch_update_signed")
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
+    _cuda.require_hash_inputs(name, plan, table, chunks, sq, sr, _cuda.FOLD_DTYPES)
+    freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     w, h_pad = table.shape
     b = chunks.shape[0]
@@ -116,7 +124,7 @@ def sketch_update_signed(plan: IndexPlan, table: torch.Tensor,
     plan_c = _cuda.plan_struct(plan)
     lib = _cuda.library()
     with torch.cuda.device(table.device):
-        rc = lib.sk_sketch_update_signed(
+        rc = getattr(lib, symbol)(
             ctypes.byref(plan_c), table.data_ptr(), h_pad, w,
             chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(), r.data_ptr(),
             sq.data_ptr(), sr.data_ptr(), _cuda.stream_of(table))

@@ -590,6 +590,9 @@ def test_signed_refusals_match_reference():
 
 
 def test_float32_and_sharded_refusals_name_their_items():
+    """The sharded folds refuse naming ROADMAP item 12; conservative mode
+    refuses what the reference's refuses; float32 tables are taken by the
+    folds and refused, with ValueError, by the int32-only reads."""
     rspec, pspec = _specs(3)
     _, pp = _params(rspec, 210)
     for mode, params in (("signed", pp), ("linear", pp.base)):
@@ -597,9 +600,13 @@ def test_float32_and_sharded_refusals_name_their_items():
         with pytest.raises(NotImplementedError, match="item 12"):
             ks.sharded_update(None, ("data",), np.zeros((2, 4), np.uint32),
                               np.ones(2))
-    # the check every CUDA wrapper runs first (the card tests drive it there)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _cuda.require_int32_table(torch.zeros((2, 2)), "sketch_update_signed")
+    # the checks the CUDA wrappers run first (the card tests drive them
+    # there): the folds take float32 tables since item 14 (K1f, K3f, K6f,
+    # K8f); the reads (K2, K4, K7, K9) take int32 only, as the reference's
+    _cuda.require_table_dtype(torch.zeros((2, 2)), "sketch_update_signed",
+                              _cuda.FOLD_DTYPES)
+    with pytest.raises(ValueError, match="takes int32 tables"):
+        _cuda.require_int32_table(torch.zeros((2, 2)), "sketch_query_signed")
     # conservative mode is ported; its sharded fold refuses as the
     # reference's does, and a conservative hierarchy is no KernelHierarchy
     cons = KernelSketch(pspec, pp.base, device="cpu", mode="conservative")
@@ -608,3 +615,69 @@ def test_float32_and_sharded_refusals_name_their_items():
     with pytest.raises(ValueError, match="KernelHierarchy modes"):
         KernelHierarchy(phh.HierarchySpec.from_spec(pspec), pp, device="cpu",
                         mode="conservative")
+
+
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+@pytest.mark.parametrize("w", WIDTHS)
+def test_plain_k6f_k8f_match_reference_oracles_float32(w, values):
+    """The plain K6f and K8f (float32 tables, signed float values) against
+    the reference's jnp oracles, and ``hier_fold_tables`` on float32 tables
+    and ``hier_fold_zero_tables`` (the compressor's fold, which takes K8f
+    on the card): exact on
+    integer-valued values, within float32 rounding (rtol 1e-6) on Gaussian
+    ones."""
+    rspec, pspec = _specs(w)
+    rhspec, phspec = _hspecs(w)
+    rp, pp = _params(rspec, 120 + w)
+    q, r = pp.base
+    rng = np.random.default_rng(121 + w)
+    items, freqs = _block(900, 122 + w)
+    vals = (freqs if values == "integer"
+            else rng.standard_normal(freqs.shape) * 50).astype(np.float32)
+
+    def close(want, got):
+        if values == "integer":
+            _eq(want, got)
+        else:
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(want).max()))
+
+    before = dict(_cuda.LAUNCHES)
+    plan = make_plan(pspec)
+    h_pad = psu.padded_table_size(pspec.table_size, 128)
+    chunks = pspec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)))
+    flat = psu.sketch_update_signed(plan, torch.zeros((w, h_pad)), chunks,
+                                    torch.from_numpy(vals), q, r, pp.sign_q, pp.sign_r)
+    rflat = rcs.update(rspec, rcs.CountSketchState(rp, _zeros(rspec, jnp.float32)),
+                       jnp.asarray(items), jnp.asarray(vals))
+    close(rflat.table, flat[:, : pspec.table_size])
+
+    rhp = rcs.init_params(rhspec.levels[-1], jax.random.PRNGKey(130 + w))
+    hq_, hr, hsq, hsr = (torch.from_numpy(a.astype(np.int64)) for a in _arrays(rhp))
+    rplan, pplan = rhu.make_hier_plan(rhspec, 128), phu.make_hier_plan(phspec, 128)
+    ordered = phspec.level_items(phspec.n_levels - 1, items)
+    rchunks = jnp.asarray(rhspec.levels[-1].schema.module_chunks_np(ordered))
+    pchunks = phspec.levels[-1].schema.module_chunks(
+        torch.from_numpy(ordered.astype(np.int64)))
+    want = rhu.hier_update_signed_ref(
+        rplan, jnp.zeros((w, rplan.padded_cols), jnp.float32), rchunks,
+        jnp.asarray(vals), rhp.base.q, rhp.base.r, rhp.sign_q, rhp.sign_r)
+    got = phu.hier_update_signed(pplan, torch.zeros((w, pplan.padded_cols)), pchunks,
+                                 torch.from_numpy(vals), hq_, hr, hsq, hsr)
+    close(want, got)
+
+    zeros = tuple(jnp.zeros((s.width, s.table_size), jnp.float32) for s in rhspec.levels)
+    rtabs = rcs.hier_fold_tables(rhspec, rhp, zeros, jnp.asarray(items), jnp.asarray(vals))
+    ptabs = pcs.hier_fold_tables(
+        phspec, interop.countsketch_params_from_numpy(*_arrays(rhp), device="cpu"),
+        tuple(torch.zeros((s.width, s.table_size)) for s in phspec.levels),
+        items, torch.from_numpy(vals))
+    for a, b in zip(rtabs, ptabs):
+        close(a, b)
+    fresh = pcs.hier_fold_zero_tables(
+        phspec, interop.countsketch_params_from_numpy(*_arrays(rhp), device="cpu"),
+        items, torch.from_numpy(vals))
+    for a, b in zip(ptabs, fresh):
+        assert torch.equal(a, b)
+    assert dict(_cuda.LAUNCHES) == before

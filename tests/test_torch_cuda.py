@@ -1,9 +1,12 @@
-"""The port's CUDA kernels (K1-K9, K5i) against their plain PyTorch
-versions.
+"""The port's CUDA kernels (K1-K9, K5i, and the float32 folds K1f, K3f,
+K6f, K8f) against their plain PyTorch versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
-on a machine that has one).  Inputs are made with numpy from a seed; the
-tables are int32, so the tolerance is exact equality.  Each kernel is
+on a machine that has one).  Inputs are made with numpy from a seed.  On
+int32 tables, and on float32 tables fed integer-valued values (every
+partial sum exact), the tolerance is exact equality; float32 tables fed
+Gaussian values agree within rtol 1e-5 of the table's scale, since float
+atomics add in any order.  Each kernel is
 compared with its plain version on the same card and the same inputs, at
 small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
@@ -164,21 +167,24 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     chunks = spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(cuda))
     f = torch.from_numpy(freqs).to(cuda)
     h_pad = su.padded_table_size(spec.table_size, 128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        su.sketch_update(plan, torch.zeros((spec.width, h_pad), device=cuda),
-                         chunks, f, params.q, params.r)
+    with pytest.raises(ValueError, match="takes int32 tables"):
+        sq.sketch_query(plan, torch.zeros((spec.width, h_pad), device=cuda),
+                        chunks, params.q, params.r)
+    with pytest.raises(ValueError, match="int32 or float32"):
+        su.sketch_update(plan, torch.zeros((spec.width, h_pad), dtype=torch.int64,
+                                           device=cuda), chunks, f, params.q, params.r)
     table = torch.zeros((spec.width, h_pad), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="is on cpu"):
         su.sketch_update(plan, table, chunks.cpu(), f, params.q, params.r)
     with pytest.raises(ValueError, match="int64"):
         sq.sketch_query(plan, table, chunks.to(torch.int32), params.q, params.r)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="takes int32 tables"):
         hq.hier_candidate_query(table.float(), chunks[:2, :1].T.contiguous(),
                                 chunks[:2, :1].T.contiguous())
 
 
 @pytest.mark.parametrize("dtype,error,match", [
-    (torch.float32, NotImplementedError, "training slice"),
+    (torch.float32, ValueError, "takes int32 tables"),
     (torch.int64, ValueError, "takes int32 tables"),
 ])
 def test_kernel_descent_refuses_tables_k4_does_not_take(cuda, dtype, error, match):
@@ -354,7 +360,11 @@ def test_k9_signed_grid_on_level_views_matches_plain(cuda):
                                        max_batch=max_batch))
 
 
-def test_signed_float32_tables_on_the_card_raise_item_14(cuda):
+def test_signed_float32_folds_launch_and_reads_refuse(cuda):
+    """Item 14 is ported: signed float32 tables fold on the card through
+    K6f and K8f (no plain fallback), point queries take the plain gather
+    as the reference's do, and K9 -- int32 only, as the reference's --
+    refuses a float32 level."""
     hspec = _hspec()
     spec = hspec.levels[-1]
     params = _signed_params(spec, 33, cuda)
@@ -362,16 +372,20 @@ def test_signed_float32_tables_on_the_card_raise_item_14(cuda):
     ks = KernelSketch(spec, params, dtype=torch.float32, device=cuda, mode="signed")
     kh = KernelHierarchy(hspec, params, dtype=torch.float32, device=cuda, mode="signed")
     before = dict(_cuda.LAUNCHES)
-    for call in (lambda: ks.update(items, freqs), lambda: ks.query_rows(items),
-                 lambda: kh.update(items, freqs)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+    ks.update(items, freqs)
+    kh.update(items, freqs)
+    assert _cuda.LAUNCHES["sketch_update_signed_f32"] == before["sketch_update_signed_f32"] + 1
+    assert _cuda.LAUNCHES["hier_update_signed_f32"] == before["hier_update_signed_f32"] + 1
+    ref = cs.update(spec, cs.init_state(spec, params, device=cuda), items, freqs)
+    assert torch.equal(ks.cs_state().table, ref.table)
+    np.testing.assert_array_equal(ks.query_rows(items),
+                                  cs.query_rows(spec, ref, items)[0].cpu().numpy())
+    assert _cuda.LAUNCHES["sketch_query_signed"] == before["sketch_query_signed"]
     state = kh.cs_state()
     values = items[:5, list(hspec.base.partition[0])]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="takes int32 tables"):
         cs.candidate_estimates(hspec, state, 0, np.zeros((1, 0), np.uint32), values,
                                use_kernel=True)
-    assert dict(_cuda.LAUNCHES) == before
 
 
 def test_signed_path_kernel_equals_plain_on_card(cuda):
@@ -533,3 +547,147 @@ def test_conservative_paths_equal_plain_paths_on_card(cuda):
     assert torch.equal(ks_k.table.cpu(), ks_p.table)
     q = wl.stream.items[:500]
     assert np.array_equal(ks_k.query(q), ks_p.query(q))
+
+
+# --------------------------------------------------------------------------
+# float32 folds: K1f, K3f, K6f, K8f
+# --------------------------------------------------------------------------
+
+def _f32_values(freqs, kind, seed):
+    if kind == "integer":
+        return freqs.astype(np.float32)
+    return (np.random.default_rng(seed).standard_normal(freqs.shape) * 100).astype(
+        np.float32)
+
+
+def _f32_equal(got, want, kind):
+    torch.cuda.synchronize()
+    if kind == "integer":
+        assert torch.equal(got, want)
+    else:
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+def test_k1f_float32_flat_fold_matches_plain(cuda, kind):
+    spec = _hspec().levels[-1]
+    plan = make_plan(spec)
+    params = _params(spec, 40, cuda)
+    items, freqs = _block(_hspec(), 3000, 41)
+    chunks = _chunks(spec, items, cuda)
+    f = torch.from_numpy(_f32_values(freqs, kind, 42)).to(cuda)
+    base = _random_table((spec.width, su.padded_table_size(spec.table_size, 128)),
+                         43, cuda).float()
+    n0 = dict(_cuda.LAUNCHES)
+    got = su.sketch_update(plan, base.clone(), chunks, f, params.q, params.r)
+    want = su.sketch_update_ref(plan, base.clone(), chunks, f, params.q, params.r)
+    assert _cuda.LAUNCHES["sketch_update_f32"] == n0["sketch_update_f32"] + 1
+    assert _cuda.LAUNCHES["sketch_update"] == n0["sketch_update"]
+    _f32_equal(got, want, kind)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+def test_k3f_float32_hierarchy_fold_matches_plain(cuda, kind):
+    hspec = _hspec()
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    params = _params(hspec.levels[-1], 44, cuda)
+    got = torch.zeros((hspec.base.width, hplan.padded_cols), device=cuda)
+    want = got.clone()
+    n0 = _cuda.LAUNCHES["hier_update_f32"]
+    for seed in (45, 46):
+        items, freqs = _block(hspec, 2000, seed)
+        chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+        f = torch.from_numpy(_f32_values(freqs, kind, seed)).to(cuda)
+        hu.hier_update(hplan, got, chunks, f, params.q, params.r)
+        hu.hier_update_ref(hplan, want, chunks, f, params.q, params.r)
+    assert _cuda.LAUNCHES["hier_update_f32"] == n0 + 2
+    _f32_equal(got, want, kind)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+def test_k6f_float32_signed_flat_fold_matches_plain(cuda, kind):
+    spec = _hspec().levels[-1]
+    plan = make_plan(spec)
+    (q, r), s_q, s_r = _signed_params(spec, 47, cuda)
+    items, freqs = _signed_block(_hspec(), 3000, 48)
+    chunks = _chunks(spec, items, cuda)
+    f = torch.from_numpy(_f32_values(freqs, kind, 49)).to(cuda)
+    base = torch.zeros((spec.width, su.padded_table_size(spec.table_size, 128)),
+                       device=cuda)
+    n0 = _cuda.LAUNCHES["sketch_update_signed_f32"]
+    got = su.sketch_update_signed(plan, base.clone(), chunks, f, q, r, s_q, s_r)
+    want = su.sketch_update_signed_ref(plan, base.clone(), chunks, f, q, r, s_q, s_r)
+    assert _cuda.LAUNCHES["sketch_update_signed_f32"] == n0 + 1
+    _f32_equal(got, want, kind)
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian"])
+def test_k8f_float32_signed_hierarchy_fold_matches_plain(cuda, kind):
+    """The fused signed fold on a float32 table, and the compressor's route
+    to it (countsketch.hier_fold_tables and hier_fold_zero_tables on the
+    card: one K8f launch each, level views of one concatenated table)
+    against the plain fold on the CPU."""
+    hspec = _hspec(w=3)
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    params = _signed_params(hspec.levels[-1], 50, cuda)
+    (q, r), s_q, s_r = params
+    got = torch.zeros((3, hplan.padded_cols), device=cuda)
+    want = got.clone()
+    items, freqs = _signed_block(hspec, 2500, 51)
+    vals = _f32_values(freqs, kind, 52)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    f = torch.from_numpy(vals).to(cuda)
+    n0 = _cuda.LAUNCHES["hier_update_signed_f32"]
+    hu.hier_update_signed(hplan, got, chunks, f, q, r, s_q, s_r)
+    hu.hier_update_signed_ref(hplan, want, chunks, f, q, r, s_q, s_r)
+    assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + 1
+    _f32_equal(got, want, kind)
+
+    zeros = tuple(torch.zeros((s.width, s.table_size), device=cuda) for s in hspec.levels)
+    tabs = cs.hier_fold_tables(hspec, params, zeros, items, f)
+    assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + 2
+    assert tabs[1].stride(0) == sum(s.table_size for s in hspec.levels)
+    cpu_params = cs.resolve_params(hspec.levels[-1], params, "cpu")
+    plain = cs.hier_fold_tables(hspec, cpu_params, tuple(z.cpu() for z in zeros), items,
+                                torch.from_numpy(vals))
+    for a, b in zip(tabs, plain):
+        _f32_equal(a.cpu(), b, kind)
+    fresh = cs.hier_fold_zero_tables(hspec, params, items, f)
+    assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + 3
+    assert fresh[1].stride(0) == tabs[1].stride(0)
+    for a, b in zip(fresh, plain):
+        _f32_equal(a.cpu(), b, kind)
+
+
+def test_compressor_on_the_card_equals_cpu_on_integer_gradients(cuda):
+    """compress_decompress with its fold on K8f and its descent (stable
+    top-k, median of rows) on the card equals the CPU run exactly on
+    integer-valued gradients with many ties, beam and dense descents."""
+    from repro_torch import tree as tr
+    from repro_torch.training import grad_compression as gc
+
+    rng = np.random.default_rng(53)
+    grads = {"w": rng.integers(-3, 4, (1024, 64)).astype(np.float32),
+             "v": np.zeros((40, 48), np.float32), "b": np.ones(7, np.float32)}
+    grads["v"].reshape(-1)[:100] = 2.0
+    for cfg in (gc.CompressionConfig(enabled=True, width=5, ratio=2.0, min_size=256,
+                                     beta_rows_cols=256.0, k=24),
+                gc.CompressionConfig(enabled=True, width=3, ratio=4.0, min_size=256)):
+        cpu_g = tr.map_leaves(torch.from_numpy, grads)
+        dev_g = tr.map_leaves(lambda x: x.to(cuda), cpu_g)
+        cpu_state = gc.init_compression(cfg, cpu_g, torch.Generator().manual_seed(54))
+        draws = {path: (c.params.base.q, c.params.base.r, c.params.sign_q,
+                        c.params.sign_r)
+                 for path, c in tr.flatten(cpu_state.compressors) if c is not None}
+        dev_state = gc.init_compression(cfg, dev_g, draws)
+        n0 = _cuda.LAUNCHES["hier_update_signed_f32"]
+        for _ in range(2):
+            cpu_out, cpu_state, _ = gc.compress_decompress(cfg, cpu_g, cpu_state)
+            dev_out, dev_state, _ = gc.compress_decompress(cfg, dev_g, dev_state)
+            for (path, a), b in zip(tr.flatten(dev_out), tr.leaves(cpu_out)):
+                assert torch.equal(a.cpu(), b), path
+            for (path, a), b in zip(tr.flatten(dev_state.residual),
+                                    tr.leaves(cpu_state.residual)):
+                assert (a is None and b is None) or torch.equal(a.cpu(), b), path
+        assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + 4

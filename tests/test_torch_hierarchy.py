@@ -354,3 +354,45 @@ def test_kernel_hierarchy_from_reference_state():
     with pytest.raises(ValueError, match="need 3 level tables"):
         interop.hierarchy_state_from_numpy(pspec, np.asarray(fine.q),
                                            np.asarray(fine.r), [], device="cpu")
+
+
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_plain_k3f_matches_reference_hier_update_ref_float32(values):
+    """K3f's plain version (float32 concatenated table) against the
+    reference's jnp oracle: exact on integer-valued frequencies, within
+    float32 rounding (rtol 1e-6) on Gaussian ones; the float32
+    ``KernelHierarchy`` folds the same table."""
+    rspec, pspec = _hspecs()
+    rstate, pstate = _states(rspec, pspec)
+    rplan, pplan = rhu.make_hier_plan(rspec, 128), phu.make_hier_plan(pspec, 128)
+    fine = rstate.states[-1].params
+    pq, pr = pstate.states[-1].params
+    rng = np.random.default_rng(15)
+    start = rng.integers(-50, 50, (3, pplan.padded_cols)).astype(np.float32)
+    want, got = jnp.asarray(start), torch.from_numpy(start.copy())
+    kh = KernelHierarchy(pspec, (pq, pr), tile_h=128, dtype=torch.float32,
+                         device="cpu")
+    kh.table = torch.from_numpy(start.copy())
+    before = dict(_cuda.LAUNCHES)
+    n_fine = pspec.n_levels - 1
+    for seed in range(2):
+        items, freqs = _block(700, 60 + seed)
+        if values == "gaussian":
+            freqs = rng.standard_normal(freqs.shape) * 10
+        freqs = freqs.astype(np.float32)
+        ordered = rspec.level_items(n_fine, items)
+        want = rhu.hier_update_ref(rplan, want,
+                                   rspec.levels[-1].schema.module_chunks(jnp.asarray(ordered)),
+                                   jnp.asarray(freqs), fine.q, fine.r)
+        chunks = pspec.levels[-1].schema.module_chunks(
+            torch.from_numpy(ordered.astype(np.int64)))
+        phu.hier_update(pplan, got, chunks, torch.from_numpy(freqs), pq, pr)
+        kh.update(items, freqs)
+    for table in (got, kh.table):
+        assert table.dtype == torch.float32
+        if values == "integer":
+            np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+        else:
+            np.testing.assert_allclose(table.numpy(), np.asarray(want), rtol=1e-6,
+                                       atol=1e-6 * float(np.abs(want).max()))
+    assert dict(_cuda.LAUNCHES) == before

@@ -74,6 +74,9 @@ def _entry_points():
     from repro_torch.core.selection import choose_sketch, migration_gain
     from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
     from repro_torch.serving.sketch_engine import SketchTopKEndpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import train_loop as tl
 
     spec = sk.mod_sketch_spec(KeySchema((256, 256)), [(0,), (1,)], (8, 8), 2)
     hspec = hh.HierarchySpec.from_spec(spec)
@@ -100,6 +103,14 @@ def _entry_points():
         "migration_gain": lambda: migration_gain(spec, spec, items, freqs),
         "greedy_config": lambda: greedy_config(items, freqs, spec.schema, 64, 2),
         "exhaustive_config": lambda: exhaustive_config(items, freqs, spec.schema, 64, 2),
+        "transformer.init_params": lambda: tfm.init_params(get_reduced("gemma-7b"), gen),
+        "init_train_state": lambda: tl.init_train_state(
+            get_reduced("gemma-7b"), tl.TrainConfig(), gen),
+        "train": lambda: tl.train(get_reduced("gemma-7b"), tl.TrainConfig(), 1, 1, 8, gen),
+        "model_params_from_numpy": lambda: interop.model_params_from_numpy(
+            get_reduced("gemma-7b"), {}),
+        "train_state_from_numpy": lambda: interop.train_state_from_numpy(
+            get_reduced("gemma-7b"), tl.TrainConfig(), {}),
     }
 
 
@@ -108,7 +119,9 @@ def _entry_points():
      "build_hierarchy", "init_state", "build_sketch", "params_from_numpy",
      "KernelSketch_signed", "KernelHierarchy_signed", "countsketch.init_hierarchy",
      "SketchTopKEndpoint_conservative", "KernelSketch_conservative", "choose_sketch",
-     "migration_gain", "greedy_config", "exhaustive_config"]))
+     "migration_gain", "greedy_config", "exhaustive_config",
+     "transformer.init_params", "init_train_state", "train", "model_params_from_numpy",
+     "train_state_from_numpy"]))
 def test_entry_points_without_a_card_raise(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

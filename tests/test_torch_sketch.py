@@ -228,3 +228,39 @@ def test_kernel_sketch_state_dict_round_trips_with_reference():
     narrow = pops.KernelSketch(pspec, (pp.q, pp.r), tile_h=128, device="cpu")
     with pytest.raises(ValueError, match="fingerprint mismatch"):
         narrow.load_state_dict(rsd)
+
+
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_plain_k1f_matches_reference_oracle_float32(values):
+    """K1f's plain version (a float32 table, float values) against the
+    reference's jnp oracle: exact on integer-valued frequencies; within
+    float32 rounding (rtol 1e-6) on Gaussian ones."""
+    from repro_torch.kernels import _cuda
+
+    rspec, pspec = _specs(*SPECS[1][1:])
+    rp, pp = _shared(rspec, pspec)
+    items, freqs = _block(900, 6)
+    if values == "gaussian":
+        freqs = np.random.default_rng(7).standard_normal(freqs.shape) * 100
+    freqs = freqs.astype(np.float32)
+    rplan, pplan = r_make_plan(rspec), p_make_plan(pspec)
+    h_pad = psu.padded_table_size(pspec.table_size, 512)
+    start = np.random.default_rng(8).integers(-99, 99, (3, h_pad)).astype(np.float32)
+    before = dict(_cuda.LAUNCHES)
+    chunks = pspec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)))
+    got = psu.sketch_update(pplan, torch.from_numpy(start.copy()), chunks,
+                            torch.from_numpy(freqs), pp.q, pp.r)
+    want = rref.sketch_update_ref(rplan, jnp.asarray(start),
+                                  rspec.schema.module_chunks(jnp.asarray(items)),
+                                  jnp.asarray(freqs), rp.q, rp.r)
+    assert got.dtype == torch.float32
+    if values == "integer":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(want).max()))
+    assert dict(_cuda.LAUNCHES) == before
+    # the float32 KernelSketch takes negative and large float frequencies
+    ks = pops.KernelSketch(pspec, (pp.q, pp.r), dtype=torch.float32, device="cpu")
+    ks.update(items, -np.abs(freqs) * (1 << 25))
+    assert float(ks.table.min()) < 0
