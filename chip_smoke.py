@@ -58,14 +58,17 @@ Phases, any failure of which exits non-zero:
    gradient within 2^-10 of the sum of |v| per cell;
 3. hold each kernel (K1-K9, K5i, K1f, K3f, K6f, K8f) against its plain
    version on the card at the shapes its path gives it (int32 and
-   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5 on
-   both residency routes;
+   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5, K8
+   and K8f on both residency routes (K8 also on the stream's first block
+   in its sorted order);
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
    torch.profiler; set both beside the least time the card could take,
    and K5/K5i also beside their chain bound (B dependent steps of one
-   table load and a warp minimum, each step measured by a probe kernel);
+   table load and a warp minimum, each step measured by a probe kernel),
+   K8f beside two probes of what bounds it (a finest level that fits L2,
+   all-zero values);
 5. drive the main path, the turnstile path, the conservative path and one
    train step once more under torch.profiler for the device's busy and
    idle share.
@@ -77,6 +80,7 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -284,6 +288,38 @@ def param_bytes(q: torch.Tensor, r: torch.Tensor) -> int:
     return 4 * (q.numel() + r.numel())
 
 
+class AllGlobal:
+    """K8/K8f's other route while installed: the residency rule
+    (``hier_update.signed_geometry``) given no shared memory, so the same
+    kernel adds every level with global atomics."""
+
+    def __enter__(self):
+        self._orig = rule = hu.signed_geometry
+        hu.signed_geometry = lambda *args, **kw: rule(*args, **{**kw, "shared_bytes": 0})
+        return self
+
+    def __exit__(self, *exc):
+        hu.signed_geometry = self._orig
+
+
+def signed_geometry_note(hplan, w: int, n: int, itemsize: int) -> dict:
+    """The launch the residency rule gives K8/K8f for n keys on this card:
+    each level's route, the shared bytes a CTA, the CTAs and their span."""
+    g = hu.signed_geometry(hplan, w, n, itemsize,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"levels": ["shared" if on else "global" for on in g.shared],
+            "shared_bytes": g.shared_bytes, "ctas": g.ctas, "span_tiles": g.span_tiles}
+
+
+def both_routes_err(fold, plain) -> float:
+    """Max |err| of K8/K8f against ``plain()`` on the rule's route and on
+    the all-global route; ``fold()`` runs the kernel on a fresh table."""
+    want = plain()
+    err = max_abs_err(fold(), want)
+    with AllGlobal():
+        return max(err, max_abs_err(fold(), want))
+
+
 class Recorded:
     """Records the inputs (and results) of every call of a function
     (``module.name``) while installed, so a kernel is checked and timed at
@@ -483,15 +519,21 @@ def flat_path(spec, params, stream):
 # the turnstile path: signed Count-Sketch
 # --------------------------------------------------------------------------
 
+def turnstile_deletions(n: int, seed: int):
+    """The seeded half of the stream's n distinct edges that the turnstile
+    deletes (a bool mask), and the generator that goes on to shuffle it."""
+    rng = np.random.default_rng((seed, 12))
+    gone = np.zeros(n, bool)
+    gone[rng.permutation(n)[: n // 2]] = True
+    return gone, rng
+
+
 def turnstile_stream(stream, seed: int):
     """The stream inserted whole and a seeded random half of its distinct
     edges deleted whole (-f), the rows of both signs shuffled together so
     every block carries both.  Returns (items, freqs, kept items, kept
     freqs)."""
-    rng = np.random.default_rng((seed, 12))
-    n = stream.items.shape[0]
-    gone = np.zeros(n, bool)
-    gone[rng.permutation(n)[: n // 2]] = True
+    gone, rng = turnstile_deletions(stream.items.shape[0], seed)
     items = np.concatenate([stream.items, stream.items[gone]])
     freqs = np.concatenate([stream.freqs, -stream.freqs[gone]])
     order = rng.permutation(items.shape[0])
@@ -858,22 +900,27 @@ def leaf_chunks(comp):
 
 
 def k8f_real_gradient(comp, vals) -> float:
-    """K8f against its plain version on a real corrected gradient: the
-    largest |kernel - plain| over the sum of |v| into that cell."""
+    """K8f against its plain version on a real corrected gradient, on both
+    routes: the largest |kernel - plain| over the sum of |v| into that
+    cell."""
     hplan = hu.make_hier_plan(comp.plan.hspec, tile_h=1)
     (q, r), s_q, s_r = comp.params
     chunks = leaf_chunks(comp)
     w = comp.plan.hspec.base.width
-    got = torch.zeros((w, hplan.padded_cols), device=DEVICE)
-    hu.hier_update_signed(hplan, got, chunks, vals, q, r, s_q, s_r)
-    want = plain_signed_fold(hplan, torch.zeros_like(got), chunks, vals, q, r, s_q, s_r)
-    mag = torch.zeros_like(got)
+    zero = torch.zeros((w, hplan.padded_cols), device=DEVICE)
+    want = plain_signed_fold(hplan, zero.clone(), chunks, vals, q, r, s_q, s_r)
+    mag = zero.clone()
     for s in range(0, chunks.shape[0], PLAIN_CHUNK):
         hu.hier_update_ref(hplan, mag, chunks[s : s + PLAIN_CHUNK],
                            vals[s : s + PLAIN_CHUNK].abs(), q, r)
-    diff = (got - want).abs()
-    check(bool((diff[mag == 0] == 0).all()), "K8f: untouched cells stay 0")
-    return float((diff / mag.clamp_min(torch.finfo(torch.float32).tiny)).max())
+    worst = 0.0
+    for route in (contextlib.nullcontext(), AllGlobal()):
+        with route:
+            got = hu.hier_update_signed(hplan, zero.clone(), chunks, vals, q, r, s_q, s_r)
+        diff = (got - want).abs()
+        check(bool((diff[mag == 0] == 0).all()), "K8f: untouched cells stay 0")
+        worst = max(worst, float((diff / mag.clamp_min(torch.finfo(torch.float32).tiny)).max()))
+    return worst
 
 
 def compression_checks(cfg, tcfg, state):
@@ -1071,15 +1118,11 @@ def signed_values(bits, level: int, f: torch.Tensor) -> torch.Tensor:
     return ((1 - 2 * ((bits >> level) & 1)) * f.to(torch.int64)).to(torch.int32)
 
 
-def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids):
-    dev = torch.device(DEVICE)
-    items, freqs, queries = turnstile
-    (q, r), s_q, s_r = ks.cs_params
-    blk_items = items[:BLOCK]
-    f = torch.from_numpy(freqs[:BLOCK]).to(dev, torch.int32)
-
-    # K8: one 65,536-row turnstile block into the live signed hierarchy table
-    hplan, table = kh.hplan, kh.table
+def k8_block(hspec, hplan, table, blk_items, f, q, r, s_q, s_r):
+    """One block's K8 inputs: its chunks, and for ``index_add_`` the flat
+    cells and signed values of every (level, row, key), and the cells the
+    block touches."""
+    dev = table.device
     ordered = hspec.level_items(hspec.n_levels - 1, as_index_tensor(blk_items, dev))
     chunks = hspec.levels[-1].schema.module_chunks(ordered)
     w, cols = table.shape
@@ -1089,21 +1132,70 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids):
     flat = torch.cat([(base + idx // d + o).reshape(-1)
                       for o, d in zip(hplan.level_offsets, hplan.level_divs)])
     vals = torch.cat([signed_values(bits, l, f).reshape(-1) for l in range(hplan.n_levels)])
-    touched = int(torch.unique(flat[vals != 0]).numel())
+    return chunks, flat, vals, int(torch.unique(flat[vals != 0]).numel())
+
+
+def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
+    dev = torch.device(DEVICE)
+    items, freqs, queries = turnstile
+    (q, r), s_q, s_r = ks.cs_params
+    blk_items = items[:BLOCK]
+    f = torch.from_numpy(freqs[:BLOCK]).to(dev, torch.int32)
+
+    # K8: one 65,536-row turnstile block into the live signed hierarchy
+    # table, on the rule's route and on the all-global route; then the
+    # stream's first block in its sorted order (stream.items[:BLOCK], the
+    # edges the turnstile deletes negated), whose heavy sources come in runs
+    hplan, table = kh.hplan, kh.table
+    w, cols = table.shape
+    chunks, flat, vals, touched = k8_block(hspec, hplan, table, blk_items, f, q, r, s_q, s_r)
     scratch = table.clone()
-    kr.add("hier_update_signed", "sk_hier_update_signed_kernel",
-           err=max_abs_err(
-               hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r),
-               hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q, s_r)),
-           call=lambda: hu.hier_update_signed(hplan, scratch, chunks, f, q, r, s_q, s_r),
-           plain=lambda: hu.hier_update_signed_ref(hplan, scratch, chunks, f, q, r, s_q, s_r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
-           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + param_bytes(s_q, s_r) + 8 * touched,
-           n_ops=2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels,
-           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, "
-                 f"{int((f < 0).sum())} deletions")
-    del scratch
+
+    def fold(c, v):
+        return lambda: hu.hier_update_signed(hplan, scratch, c, v, q, r, s_q, s_r)
+
+    row = kr.measure(
+        "hier_update_signed", "sk_hier_update_signed_kernel<int",
+        err=both_routes_err(
+            lambda: hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r),
+            lambda: hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q,
+                                              s_r)),
+        call=fold(chunks, f),
+        plain=lambda: hu.hier_update_signed_ref(hplan, scratch, chunks, f, q, r, s_q, s_r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+        n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + param_bytes(s_q, s_r) + 8 * touched,
+        n_ops=2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels,
+        shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, "
+              f"{int((f < 0).sum())} deletions, shuffled")
+    row["geometry"] = signed_geometry_note(hplan, w, BLOCK, table.element_size())
+    with AllGlobal():
+        row["global_route_ms"] = cold_ms(fold(chunks, f), 100, kr.evict)
+    gone, _ = turnstile_deletions(stream.items.shape[0], seed)
+    sf = torch.from_numpy(np.where(gone[:BLOCK], -stream.freqs[:BLOCK],
+                                   stream.freqs[:BLOCK])).to(dev, torch.int32)
+    schunks, sflat, svals, stouched = k8_block(hspec, hplan, table, stream.items[:BLOCK], sf,
+                                               q, r, s_q, s_r)
+    err = both_routes_err(
+        lambda: hu.hier_update_signed(hplan, table.clone(), schunks, sf, q, r, s_q, s_r),
+        lambda: hu.hier_update_signed_ref(hplan, table.clone(), schunks, sf, q, r, s_q, s_r))
+    check(err == 0, f"K8 on the sorted block bit-identical to its plain version ({err})")
+    sorted_row = {"ms": cold_ms(fold(schunks, sf), 100, kr.evict),
+                  "library_ms": cold_ms(lambda: scratch.view(-1).index_add_(0, sflat, svals),
+                                        100, kr.evict),
+                  "bound_ms": bound_ms(
+                      key_bytes(hspec.base.schema, BLOCK) + nbytes(sf) + param_bytes(q, r)
+                      + param_bytes(s_q, s_r) + 8 * stouched,
+                      2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels)[0],
+                  "max_abs_err": err, "top_source_rows": int(np.unique(
+                      stream.items[:BLOCK, 0], return_counts=True)[1].max())}
+    with AllGlobal():
+        sorted_row["global_route_ms"] = cold_ms(fold(schunks, sf), 100, kr.evict)
+    row["sorted_block"] = sorted_row
+    log(f"K8 geometry {row['geometry']}; global route {row['global_route_ms']:.5f} ms; "
+        f"sorted block {sorted_row}")
+    kr.rows.append(row)
+    del scratch, chunks, flat, vals, schunks, sflat, svals
 
     # K9: every grid the signed descent launched, each held against the
     # plain version; timed at the (P, C) it launched most often
@@ -1351,7 +1443,7 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
     del scratch, flat, vals
 
     # K8f: every compressed leaf's shape of the training path, integer
-    # values in [-8, 8]; timed at the largest leaf
+    # values in [-8, 8], on both routes; timed at the largest leaf
     gen = torch.Generator(device=dev).manual_seed(14)
     errs, per_leaf = [], {}
     for name, comp in leaves:
@@ -1361,13 +1453,18 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
         n = chunks.shape[0]
         v = torch.randint(-8, 9, (n,), generator=gen, device=dev).to(torch.float32)
         zero = torch.zeros((comp.plan.hspec.base.width, hplan.padded_cols), device=dev)
-        got = hu.hier_update_signed(hplan, zero.clone(), chunks, v, q, r, s_q, s_r)
-        want = plain_signed_fold(hplan, zero.clone(), chunks, v, q, r, s_q, s_r)
-        errs.append(max_abs_err(got, want))
-        per_leaf[name] = {"keys": n, "cold_ms": cold_ms(
-            lambda: hu.hier_update_signed(hplan, zero, chunks, v, q, r, s_q, s_r), 5,
-            kr.evict)}
-        del chunks, v, got, want, zero
+        errs.append(both_routes_err(
+            lambda: hu.hier_update_signed(hplan, zero.clone(), chunks, v, q, r, s_q, s_r),
+            lambda: plain_signed_fold(hplan, zero.clone(), chunks, v, q, r, s_q, s_r)))
+
+        def call():
+            hu.hier_update_signed(hplan, zero, chunks, v, q, r, s_q, s_r)
+
+        per_leaf[name] = {"keys": n, "cold_ms": cold_ms(call, 5, kr.evict),
+                          "geometry": signed_geometry_note(hplan, zero.shape[0], n, 4)}
+        with AllGlobal():
+            per_leaf[name]["global_route_cold_ms"] = cold_ms(call, 5, kr.evict)
+        del chunks, v, zero
     log(f"K8f per leaf: {per_leaf}")
     name, comp = max(leaves, key=lambda nc: math.prod(nc[1].plan.shape))
     hspec8 = comp.plan.hspec
@@ -1391,7 +1488,7 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
                         for l in range(hplan.n_levels)])
     del idx, bits
     row = kr.measure(
-        "hier_update_signed_f32", "sk_hier_update_signed_kernel<float>", err=max(errs),
+        "hier_update_signed_f32", "sk_hier_update_signed_kernel<float", err=max(errs),
         call=lambda: hu.hier_update_signed(hplan, table, chunks, v, q, r, s_q, s_r),
         plain=lambda: hu.hier_update_signed_ref(hplan, table, chunks, v, q, r, s_q, s_r),
         library=lambda: table.view(-1).index_add_(0, flat, signed),
@@ -1401,8 +1498,33 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
         shape=f"{name} {list(comp.plan.shape)}: B={n} w={w} levels={hplan.n_levels} "
               f"cols={cols}, float32; compared at all {len(leaves)} leaf shapes",
         reps=(10, 2, 5, 10))
+    row["geometry"] = signed_geometry_note(hplan, w, n, 4)
+    # what bounds K8f: the same keys and params into a finest level that
+    # fits L2 (64 columns of a row range), and all-zero values, which skip
+    # the hash; each beside the kernel's time above
+    small = hu.make_hier_plan(hh.HierarchySpec.from_spec(sk.mod_sketch_spec(
+        hspec8.base.schema, hspec8.base.partition, (hspec8.base.ranges[0], 64), w)), tile_h=1)
+    small_table = torch.zeros((w, small.padded_cols), device=dev)
+    zeros = torch.zeros_like(v)
+    row["bound_probes"] = {
+        "finest_fits_l2_ms": cold_ms(lambda: hu.hier_update_signed(
+            small, small_table, chunks, v, q, r, s_q, s_r), 10, kr.evict),
+        "finest_fits_l2_cols": small.padded_cols,
+        "zero_values_ms": cold_ms(lambda: hu.hier_update_signed(
+            hplan, table, chunks, zeros, q, r, s_q, s_r), 10, kr.evict)}
+    del small_table, zeros
+    with AllGlobal():
+        row["global_route_ms"] = cold_ms(
+            lambda: hu.hier_update_signed(hplan, table, chunks, v, q, r, s_q, s_r), 10,
+            kr.evict)
     row["per_leaf"] = per_leaf
     row["step_cold_ms"] = sum(x["cold_ms"] for x in per_leaf.values())
+    row["global_route_step_cold_ms"] = sum(x["global_route_cold_ms"]
+                                           for x in per_leaf.values())
+    row["lm_head_over_embed"] = per_leaf["lm_head"]["cold_ms"] / per_leaf["embed"]["cold_ms"]
+    log(f"K8f geometry {row['geometry']}; global route {row['global_route_ms']:.5f} ms; "
+        f"lm_head / embed {row['lm_head_over_embed']:.4f}; bound probes "
+        f"{row['bound_probes']}")
     kr.rows.append(row)
 
 
@@ -1564,7 +1686,7 @@ def main(argv=None) -> int:
                          "sketch_update_f32", "hier_update_f32", "sketch_update_signed_f32")},
                      "hier_update_signed_f32": train_launches["hier_update_signed_f32"]})
     kernel_rows(kr, hspec, eng, ks, stream, grids)
-    signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids)
+    signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids, stream, args.seed)
     conservative_kernel_rows(kr, hspec, ep_c, ks_c, acc_ks, stream)
     kr.rows[-1]["launches_by_path"] = {
         "accuracy": acc_launches["sketch_update_conservative"],

@@ -19,9 +19,12 @@ table in place (the reference donates it).
 K8 is the signed fold of ``hier_update_signed_pallas``: level L adds
 ``s_L(x) * f``, where s_L is bit L of the packed cumulative sign parities.
 Its kernel (``sk_hier_update_signed_kernel`` in ``csrc/signed_kernels.cu``)
-hashes the finest index and the sign bits once per (row, item) and issues
-one int32 ``atomicAdd`` per level; :func:`hier_update_signed_ref` is its
-plain version.
+runs one thread per item over all w rows: it hashes the finest index and
+the sign bits once per (row, item), folds the coarse levels that
+:func:`signed_geometry` puts in shared memory into a private copy per CTA
+(lanes that hit one cell combined first), adds the other levels with
+global atomics, and flushes each CTA's copy at the end.
+:func:`hier_update_signed_ref` is its plain version.
 
 On float32 tables the same kernels run as K3f and K8f (the reference's
 ``_hier_kernel_f32`` and ``_hier_kernel_signed_f32``): float32 values, the
@@ -35,7 +38,8 @@ otherwise: the reference's contract (hier_update.py:35-38).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -145,6 +149,82 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
     return table
 
 
+# The launch of the signed fold (K8, K8f).  One CTA's dynamic shared memory
+# and one SM's on an H100 (227 KB and 228 KB; the SM keeps 1 KB a CTA).
+SHARED_BYTES = 232_448
+SM_SHARED_BYTES = 233_472
+CTA_RESERVED_BYTES = 1_024
+THREADS = 256       # kThreads in csrc/signed_kernels.cu: the items of a tile
+CTAS_PER_SM = 4     # kHierCtasPerSm there, the kernel's __launch_bounds__
+# A CTA walks spans of SPAN_TILES consecutive tiles (16,384 items: over
+# three rows of a 4,608-wide gradient matrix), so the items that share a
+# coarse cell meet in one CTA; spans dealt round the CTAs spread a sparse
+# leaf's nonzero rows over all of them.
+SPAN_TILES = 64
+# A coarse level repays its shared copy when a CTA folds at least one item
+# per REPAY of the level's cells a row.  Zeroing and scanning a cell costs
+# about 7 instructions a row, hashing an item and adding it about 200 (two
+# Carter-Wegman passes, the level divisions), so the copy then costs at
+# most about as much again as the CTA's hashing, and it turns the adds of
+# the items that share a cell into one global atomic a CTA.
+REPAY = 32
+
+
+class SignedGeometry(NamedTuple):
+    """The launch of the signed fold: which levels each CTA folds in its own
+    shared copy, and how the items are dealt to the CTAs -- spans of
+    ``span_tiles`` tiles of THREADS items, span s to CTA s mod ``ctas``."""
+    shared: Tuple[bool, ...]    # per level
+    ctas: int
+    span_tiles: int
+    shared_bytes: int           # dynamic shared memory a CTA
+
+    @property
+    def shared_mask(self) -> int:
+        return sum(1 << l for l, on in enumerate(self.shared) if on)
+
+
+def _deal(n: int, smem: int, sms: int) -> Tuple[int, int]:
+    """(CTAs, span tiles) for n items at ``smem`` shared bytes a CTA: as
+    many CTAs as fit the SMs at once, spans of at most SPAN_TILES."""
+    tiles = -(-n // THREADS)
+    most = sms * min(CTAS_PER_SM, SM_SHARED_BYTES // (smem + CTA_RESERVED_BYTES))
+    span = max(1, min(SPAN_TILES, tiles // most))
+    return min(most, -(-tiles // span)), span
+
+
+def signed_geometry(hplan: HierPlan, w: int, n: int, itemsize: int, sms: int,
+                    shared_bytes: Optional[int] = None) -> SignedGeometry:
+    """The residency rule of K8/K8f for a block of ``n`` items into a
+    ``[w, hplan.padded_cols]`` table of ``itemsize``-byte cells on a card of
+    ``sms`` SMs.  Coarse levels, coarsest first, go to shared memory while
+    their ``w x padded cells`` copies fit the budget (SHARED_BYTES unless
+    ``shared_bytes`` is given; 0 keeps every level global) and each repays
+    its copy (REPAY) at the geometry it leads to.  The finest level stays
+    global: its cell is the whole item's hash, so a CTA's items meet there
+    only by collision and a copy would combine almost nothing.  Both routes
+    run the same kernel."""
+    limit = SHARED_BYTES if shared_bytes is None else shared_bytes
+    shared = [False] * hplan.n_levels
+    smem = 0
+    ctas, span = _deal(n, smem, sms)
+    for lvl in range(hplan.n_levels - 1):
+        pad = hplan.level_pads[lvl]
+        cost = w * pad * itemsize
+        if smem + cost > limit:
+            continue
+        c, s = _deal(n, smem + cost, sms)
+        if n * REPAY < c * pad:
+            continue
+        shared[lvl], smem, ctas, span = True, smem + cost, c, s
+    return SignedGeometry(tuple(shared), ctas, span, smem)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def hier_update_signed_ref(hplan: HierPlan, table: torch.Tensor,
                            chunks: torch.Tensor, freqs: torch.Tensor,
                            q: torch.Tensor, r: torch.Tensor, sq: torch.Tensor,
@@ -175,8 +255,8 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
 
     As :func:`hier_update`, plus the shared sign params sq int64[w, C] and
     sr int64[w, m]; freqs may be negative.  CUDA tensors launch K8 (int32
-    tables) or K8f (float32); CPU tensors take
-    :func:`hier_update_signed_ref`.
+    tables) or K8f (float32) with the launch :func:`signed_geometry` picks;
+    CPU tensors take :func:`hier_update_signed_ref`.
     """
     w, cols = table.shape
     if cols != hplan.padded_cols:
@@ -194,6 +274,8 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
     b = chunks.shape[0]
     _cuda.require(tuple(freqs.shape) == (b,),
                   f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
+    geometry = signed_geometry(hplan, w, b, table.element_size(),
+                               _sm_count(table.device.index))
     plan_c = _cuda.plan_struct(hplan.plan)
     levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
     lib = _cuda.library()
@@ -201,7 +283,9 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
         rc = getattr(lib, symbol)(
             ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
             cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
-            r.data_ptr(), sq.data_ptr(), sr.data_ptr(), _cuda.stream_of(table))
+            r.data_ptr(), sq.data_ptr(), sr.data_ptr(), geometry.shared_mask,
+            geometry.ctas, geometry.span_tiles, geometry.shared_bytes,
+            _cuda.stream_of(table))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return table

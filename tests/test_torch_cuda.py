@@ -12,7 +12,7 @@ small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
 multiples, int32 wraparound, negative (turnstile) frequencies, strided
 level views, and both residency routes of the conservative fold (K5, K5i)
-on int32 and float32 tables.
+and of the signed hierarchy fold (K8, K8f) on int32 and float32 tables.
 """
 import numpy as np
 import pytest
@@ -303,7 +303,19 @@ def test_k8_signed_hierarchy_update_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
-def test_k6_k8_int32_wraparound_matches_plain(cuda):
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _all_global(monkeypatch, hplan, w, n, device):
+    """Force K8/K8f's other route: the same kernel with every level on
+    global atomics."""
+    geometry = hu.signed_geometry(hplan, w, n, 4, _sms(device), shared_bytes=0)
+    assert not any(geometry.shared)
+    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: geometry)
+
+
+def test_k6_k8_int32_wraparound_matches_plain(cuda, monkeypatch):
     hspec = _hspec(w=2)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 27, cuda)
@@ -312,6 +324,7 @@ def test_k6_k8_int32_wraparound_matches_plain(cuda):
     freqs[::2] *= -1
     f = torch.from_numpy(freqs).to(cuda)
     chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    assert hu.signed_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
     for lo, hi in (((1 << 31) - (1 << 24), (1 << 31) - 1),
                    (-(1 << 31), -(1 << 31) + (1 << 24))):
         table = _random_table((2, hplan.padded_cols), 29, cuda, lo=lo, hi=hi)
@@ -319,11 +332,124 @@ def test_k6_k8_int32_wraparound_matches_plain(cuda):
         want = hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
         assert torch.equal(got, want)
         assert bool(((got > 0) != (table > 0)).any())    # it did wrap
+        with monkeypatch.context() as m:                  # and on the global route
+            _all_global(m, hplan, 2, 1500, cuda)
+            again = hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
+        assert torch.equal(again, want)
         plan = hplan.plan
         flat = table[:, : plan.table_size].contiguous()
         assert torch.equal(su.sketch_update_signed(plan, flat.clone(), chunks, f, q, r, s_q, s_r),
                            su.sketch_update_signed_ref(plan, flat.clone(), chunks, f, q, r,
                                                        s_q, s_r))
+
+
+def _skewed_block(hspec, n, seed, order):
+    """A turnstile-like block: level 0's group (modules 1 and 2) drawn from
+    40 prefixes, zipf-skewed, in stream order ("shuffled"), sorted by prefix
+    ("sorted"), or every key on one level-0 cell ("one_cell")."""
+    items, freqs = _signed_block(hspec, n, seed)
+    heavy = np.minimum(np.random.default_rng(seed + 1).zipf(1.3, n), 40) - 1
+    items[:, 1], items[:, 2] = heavy, heavy * 7 % 1000
+    if order == "sorted":
+        perm = np.lexsort((items[:, 2], items[:, 1]))
+        items, freqs = items[perm], freqs[perm]
+    elif order == "one_cell":
+        items[:, 1], items[:, 2] = 5, 17
+    return items, freqs
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("tile_h", [128, 1])
+@pytest.mark.parametrize("order,n", [("shuffled", 5003), ("sorted", 5003),
+                                     ("one_cell", 5003), ("sorted", 100)])
+def test_k8_k8f_both_routes_match_plain(cuda, monkeypatch, dtype, tile_h, order, n):
+    """K8 and K8f on the rule's route (the coarse levels in shared memory;
+    two of them at 5,003 keys, level 0 alone at 100, below one CTA's tile)
+    and on the all-global route, each against the plain fold: skewed,
+    sorted and single-cell blocks with duplicate keys, deletions and
+    zero-frequency rows, n not a multiple of the tile, padded and unpadded
+    levels.  Integer values: exact on both table types."""
+    hspec = _hspec(w=4)
+    hplan = hu.make_hier_plan(hspec, tile_h=tile_h)
+    (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 60, cuda)
+    items, freqs = _skewed_block(hspec, n, 61, order)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    if dtype == torch.int32:
+        base = _random_table((4, hplan.padded_cols), 62, cuda)
+    else:                            # every partial sum an integer below 2^24
+        base = torch.zeros((4, hplan.padded_cols), device=cuda)
+        freqs = np.sign(freqs) * (np.abs(freqs) % 256)
+    f = torch.from_numpy(freqs.astype(np.int32)).to(cuda, dtype)
+    rule = hu.signed_geometry(hplan, 4, n, 4, _sms(cuda))
+    assert rule.shared == ((True, True, False) if n > 1000 else (True, False, False))
+    name = "hier_update_signed" + ("_f32" if dtype == torch.float32 else "")
+    n0 = _cuda.LAUNCHES[name]
+    want = hu.hier_update_signed_ref(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    got = hu.hier_update_signed(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    _all_global(monkeypatch, hplan, 4, n, cuda)
+    again = hu.hier_update_signed(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == n0 + 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert not torch.equal(got, base)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k8_k8f_keys_of_many_chunks_match_plain(cuda, monkeypatch, dtype):
+    """Keys of 10 chunks, more than the kernel holds in registers, hash
+    from the chunk array on both routes."""
+    schema = KeySchema(domains=(1 << 32,) * 5)
+    hspec = hh.HierarchySpec.from_spec(
+        sk.mod_sketch_spec(schema, [(0, 1), (2,), (3, 4)], (40, 9, 11), 3))
+    assert hspec.levels[-1].schema.total_chunks == 10
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 66, cuda)
+    rng = np.random.default_rng(67)
+    items = rng.integers(0, 1 << 32, (3001, 5), dtype=np.uint64).astype(np.uint32)
+    items[100:900, :2] = items[0, :2]                 # one heavy level-0 prefix
+    freqs = rng.integers(-200, 200, 3001).astype(np.int32)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    f = torch.from_numpy(freqs).to(cuda, dtype)
+    base = torch.zeros((3, hplan.padded_cols), dtype=dtype, device=cuda)
+    assert hu.signed_geometry(hplan, 3, 3001, 4, _sms(cuda)).shared[0]
+    want = hu.hier_update_signed_ref(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    got = hu.hier_update_signed(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    _all_global(monkeypatch, hplan, 3, 3001, cuda)
+    again = hu.hier_update_signed(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_k8_refuses_a_launch_it_cannot_make(cuda, monkeypatch):
+    """A geometry whose shared bytes disagree with its levels, and a shared
+    copy above one CTA's shared memory, are refused by the launcher and
+    raised on: nothing falls back."""
+    hspec = _hspec(w=4)
+    hplan = hu.make_hier_plan(hspec, tile_h=128)
+    (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 63, cuda)
+    items, freqs = _signed_block(hspec, 300, 64)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    f = torch.from_numpy(freqs).to(cuda)
+    table = torch.zeros((4, hplan.padded_cols), dtype=torch.int32, device=cuda)
+    rule = hu.signed_geometry(hplan, 4, 300, 4, _sms(cuda))
+    wrong = rule._replace(shared_bytes=rule.shared_bytes + 4)
+    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: wrong)
+    n0 = _cuda.LAUNCHES["hier_update_signed"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        hu.hier_update_signed(hplan, table, chunks, f, q, r, s_q, s_r)
+    schema = KeySchema(domains=(1 << 32, 1 << 32))
+    big = hh.HierarchySpec.from_spec(
+        sk.mod_sketch_spec(schema, [(0,), (1,)], (65536, 64), 1))
+    bplan = hu.make_hier_plan(big, tile_h=128)
+    too_big = hu.SignedGeometry((True, False), 1, 1, 65536 * 4)
+    assert too_big.shared_bytes > hu.SHARED_BYTES
+    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: too_big)
+    (q, r), s_q, s_r = _signed_params(big.levels[-1], 65, cuda)
+    bchunks = _chunks(big.levels[-1], big.level_items(1, items[:, :2]), cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        hu.hier_update_signed(bplan, torch.zeros((1, bplan.padded_cols), dtype=torch.int32,
+                                                 device=cuda), bchunks, f, q, r, s_q, s_r)
+    assert _cuda.LAUNCHES["hier_update_signed"] == n0
 
 
 def test_k9_signed_grid_on_level_views_matches_plain(cuda):
