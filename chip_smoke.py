@@ -58,9 +58,10 @@ Phases, any failure of which exits non-zero:
    gradient within 2^-10 of the sum of |v| per cell;
 3. hold each kernel (K1-K9, K5i, K1f, K3f, K6f, K8f) against its plain
    version on the card at the shapes its path gives it (int32 and
-   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5, K8
-   and K8f on both residency routes (K8 also on the stream's first block
-   in its sorted order);
+   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5,
+   K3, K3f, K8 and K8f on both residency routes (K8 also on the stream's
+   first block in its sorted order, K3 also on the stream's heaviest block:
+   the one whose top source holds the most rows);
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
@@ -160,12 +161,12 @@ CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "sketch_update": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:124"),
     "sketch_query": ("sketch_kernels.cu", "src/repro/kernels/sketch_query.py:47"),
-    "hier_update": ("sketch_kernels.cu", "src/repro/kernels/hier_update.py:183"),
+    "hier_update": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:183"),
     "hier_query": ("sketch_kernels.cu", "src/repro/kernels/hier_query.py:53"),
     "sketch_update_signed": ("signed_kernels.cu",
                              "src/repro/kernels/sketch_update.py:184"),
     "sketch_query_signed": ("signed_kernels.cu", "src/repro/kernels/sketch_query.py:114"),
-    "hier_update_signed": ("signed_kernels.cu", "src/repro/kernels/hier_update.py:319"),
+    "hier_update_signed": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:319"),
     "hier_query_signed": ("signed_kernels.cu", "src/repro/kernels/hier_query.py:150"),
     "sketch_update_conservative": ("conservative_kernels.cu",
                                    "src/repro/kernels/sketch_update_conservative.py:114"),
@@ -173,10 +174,10 @@ KERNELS = {
     "conservative_fold": ("conservative_kernels.cu", "src/repro/core/sketch.py:253"),
     # the float32 table bodies of K1, K3, K6 and K8
     "sketch_update_f32": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:60"),
-    "hier_update_f32": ("sketch_kernels.cu", "src/repro/kernels/hier_update.py:161"),
+    "hier_update_f32": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:161"),
     "sketch_update_signed_f32": ("signed_kernels.cu",
                                  "src/repro/kernels/sketch_update.py:99"),
-    "hier_update_signed_f32": ("signed_kernels.cu", "src/repro/kernels/hier_update.py:293"),
+    "hier_update_signed_f32": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:293"),
 }
 
 
@@ -289,31 +290,33 @@ def param_bytes(q: torch.Tensor, r: torch.Tensor) -> int:
 
 
 class AllGlobal:
-    """K8/K8f's other route while installed: the residency rule
-    (``hier_update.signed_geometry``) given no shared memory, so the same
-    kernel adds every level with global atomics."""
+    """The hierarchy folds' other route while installed (K3, K3f, K8, K8f):
+    the residency rule (``hier_update.fold_geometry``) given no shared
+    memory, so the same kernel adds every level with global atomics."""
 
     def __enter__(self):
-        self._orig = rule = hu.signed_geometry
-        hu.signed_geometry = lambda *args, **kw: rule(*args, **{**kw, "shared_bytes": 0})
+        self._orig = rule = hu.fold_geometry
+        hu.fold_geometry = lambda *args, **kw: rule(*args, **{**kw, "shared_bytes": 0})
         return self
 
     def __exit__(self, *exc):
-        hu.signed_geometry = self._orig
+        hu.fold_geometry = self._orig
 
 
-def signed_geometry_note(hplan, w: int, n: int, itemsize: int) -> dict:
-    """The launch the residency rule gives K8/K8f for n keys on this card:
-    each level's route, the shared bytes a CTA, the CTAs and their span."""
-    g = hu.signed_geometry(hplan, w, n, itemsize,
-                           torch.cuda.get_device_properties(0).multi_processor_count)
+def fold_geometry_note(hplan, w: int, n: int, itemsize: int) -> dict:
+    """The launch the residency rule gives a hierarchy fold for n keys on
+    this card: each level's route, the shared bytes a CTA, the CTAs and
+    their span."""
+    g = hu.fold_geometry(hplan, w, n, itemsize,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
     return {"levels": ["shared" if on else "global" for on in g.shared],
             "shared_bytes": g.shared_bytes, "ctas": g.ctas, "span_tiles": g.span_tiles}
 
 
 def both_routes_err(fold, plain) -> float:
-    """Max |err| of K8/K8f against ``plain()`` on the rule's route and on
-    the all-global route; ``fold()`` runs the kernel on a fresh table."""
+    """Max |err| of a hierarchy fold (K3, K3f, K8, K8f) against ``plain()``
+    on the rule's route and on the all-global route; ``fold()`` runs the
+    kernel on a fresh table."""
     want = plain()
     err = max_abs_err(fold(), want)
     with AllGlobal():
@@ -1027,16 +1030,23 @@ def grid_shape_note(grids, p, c) -> str:
             + ", ".join(f"{a}x{b}:{n}" for (a, b), n in sorted(shapes.items())))
 
 
-def kernel_rows(kr, hspec, eng, ks, stream, grids):
-    dev = torch.device(DEVICE)
-    q, r = ks.params.q, ks.params.r
-    blk_items = stream.items[:BLOCK]
-    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
+def top_source_rows(items) -> int:
+    """Rows of the most frequent source (module 0) among ``items``."""
+    return int(np.unique(items[:, 0], return_counts=True)[1].max())
 
-    # K3: one 65,536-row block into the live concatenated hierarchy table
-    kh = KernelHierarchy(hspec, (q, r))
-    kh.load_state(eng.sync().state)
-    hplan, table = kh.hplan, kh.table
+
+def heaviest_block(items) -> int:
+    """The index of the BLOCK-row block of the stream whose top source
+    holds the most rows (the first such block on a tie)."""
+    tops = [top_source_rows(items[s : s + BLOCK]) for s in range(0, items.shape[0], BLOCK)]
+    return int(np.argmax(tops))
+
+
+def k3_block(hspec, hplan, table, blk_items, f, q, r):
+    """One block's K3/K3f inputs: its chunks, and for ``index_add_`` the
+    flat cells and values of every (level, row, key), and the cells the
+    block touches."""
+    dev = table.device
     ordered = hspec.level_items(hspec.n_levels - 1, as_index_tensor(blk_items, dev))
     chunks = hspec.levels[-1].schema.module_chunks(ordered)
     w, cols = table.shape
@@ -1044,20 +1054,68 @@ def kernel_rows(kr, hspec, eng, ks, stream, grids):
     base = torch.arange(w, device=dev)[:, None] * cols
     flat = torch.cat([(base + idx // d + o).reshape(-1)
                       for o, d in zip(hplan.level_offsets, hplan.level_divs)])
-    f_all = f.expand(w * hplan.n_levels, BLOCK).reshape(-1)
-    touched = int(torch.unique(flat[f_all != 0]).numel())
+    f_all = f.to(table.dtype).expand(w * hplan.n_levels, f.shape[0]).reshape(-1)
+    return chunks, flat, f_all, int(torch.unique(flat[f_all != 0]).numel())
+
+
+def kernel_rows(kr, hspec, eng, ks, stream, grids):
+    dev = torch.device(DEVICE)
+    q, r = ks.params.q, ks.params.r
+    blk_items = stream.items[:BLOCK]
+    f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
+
+    # K3: one 65,536-row block into the live concatenated hierarchy table,
+    # on the rule's route and on the all-global route; then the stream's
+    # heaviest block, whose top source's rows all add to one level-0 cell
+    kh = KernelHierarchy(hspec, (q, r))
+    kh.load_state(eng.sync().state)
+    hplan, table = kh.hplan, kh.table
+    w, cols = table.shape
+    chunks, flat, f_all, touched = k3_block(hspec, hplan, table, blk_items, f, q, r)
     scratch = table.clone()
-    kr.add("hier_update", "sk_hier_update_kernel",
-           err=max_abs_err(hu.hier_update(hplan, table.clone(), chunks, f, q, r),
-                           hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
-           call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
-           plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + 8 * touched,
-           n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
-           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}")
-    del scratch, kh
+
+    def fold(c, v):
+        return lambda: hu.hier_update(hplan, scratch, c, v, q, r)
+
+    row = kr.measure(
+        "hier_update", "sk_hier_update_kernel<int",
+        err=both_routes_err(lambda: hu.hier_update(hplan, table.clone(), chunks, f, q, r),
+                            lambda: hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
+        call=fold(chunks, f),
+        plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+        n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + 8 * touched,
+        n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
+        shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, block 0 "
+              f"(top source {top_source_rows(blk_items)} rows)")
+    row["geometry"] = fold_geometry_note(hplan, w, BLOCK, table.element_size())
+    with AllGlobal():
+        row["global_route_ms"] = cold_ms(fold(chunks, f), 100, kr.evict)
+    hb = heaviest_block(stream.items)
+    h_items = stream.items[hb * BLOCK : (hb + 1) * BLOCK]
+    hf = torch.from_numpy(stream.freqs[hb * BLOCK : (hb + 1) * BLOCK]).to(dev, torch.int32)
+    hchunks, hflat, hf_all, htouched = k3_block(hspec, hplan, table, h_items, hf, q, r)
+    err = both_routes_err(lambda: hu.hier_update(hplan, table.clone(), hchunks, hf, q, r),
+                          lambda: hu.hier_update_ref(hplan, table.clone(), hchunks, hf, q, r))
+    check(err == 0, f"K3 on the heaviest block bit-identical to its plain version ({err})")
+    n_h = h_items.shape[0]
+    heavy = {"block": hb, "rows": n_h, "top_source_rows": top_source_rows(h_items),
+             "ms": cold_ms(fold(hchunks, hf), 100, kr.evict),
+             "library_ms": cold_ms(lambda: scratch.view(-1).index_add_(0, hflat, hf_all),
+                                   100, kr.evict),
+             "bound_ms": bound_ms(
+                 key_bytes(hspec.base.schema, n_h) + nbytes(hf) + param_bytes(q, r)
+                 + 8 * htouched, hash_ops(hplan.plan, n_h) + 3 * w * n_h * hplan.n_levels)[0],
+             "max_abs_err": err,
+             "geometry": fold_geometry_note(hplan, w, n_h, table.element_size())}
+    with AllGlobal():
+        heavy["global_route_ms"] = cold_ms(fold(hchunks, hf), 100, kr.evict)
+    row["heaviest_block"] = heavy
+    log(f"K3 geometry {row['geometry']}; global route {row['global_route_ms']:.5f} ms; "
+        f"heaviest block {heavy}")
+    kr.rows.append(row)
+    del scratch, kh, chunks, flat, f_all, hchunks, hflat, hf_all
 
     # K4: every grid the main path launched, each held against the plain
     # version; timed at the (P, C) it launched most often -- the descent
@@ -1168,7 +1226,7 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
         n_ops=2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels,
         shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, "
               f"{int((f < 0).sum())} deletions, shuffled")
-    row["geometry"] = signed_geometry_note(hplan, w, BLOCK, table.element_size())
+    row["geometry"] = fold_geometry_note(hplan, w, BLOCK, table.element_size())
     with AllGlobal():
         row["global_route_ms"] = cold_ms(fold(chunks, f), 100, kr.evict)
     gone, _ = turnstile_deletions(stream.items.shape[0], seed)
@@ -1187,8 +1245,8 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
                       key_bytes(hspec.base.schema, BLOCK) + nbytes(sf) + param_bytes(q, r)
                       + param_bytes(s_q, s_r) + 8 * stouched,
                       2 * hash_ops(hplan.plan, BLOCK) + 4 * w * BLOCK * hplan.n_levels)[0],
-                  "max_abs_err": err, "top_source_rows": int(np.unique(
-                      stream.items[:BLOCK, 0], return_counts=True)[1].max())}
+                  "max_abs_err": err,
+                  "top_source_rows": top_source_rows(stream.items[:BLOCK])}
     with AllGlobal():
         sorted_row["global_route_ms"] = cold_ms(fold(schunks, sf), 100, kr.evict)
     row["sorted_block"] = sorted_row
@@ -1368,30 +1426,30 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
     blk_items = stream.items[:BLOCK]
     f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.float32)
 
-    # K3f: the float32 hierarchy
+    # K3f: the float32 hierarchy, on the rule's route and the all-global one
     q, r = f_hier.params
     hplan, table = f_hier.hplan, f_hier.table
-    ordered = hspec.level_items(hspec.n_levels - 1, as_index_tensor(blk_items, dev))
-    chunks = hspec.levels[-1].schema.module_chunks(ordered)
     w, cols = table.shape
-    idx = all_indices(hplan.plan, chunks, q, r)
-    base = torch.arange(w, device=dev)[:, None] * cols
-    flat = torch.cat([(base + idx // d + o).reshape(-1)
-                      for o, d in zip(hplan.level_offsets, hplan.level_divs)])
-    f_all = f.expand(w * hplan.n_levels, BLOCK).reshape(-1)
-    touched = int(torch.unique(flat[f_all != 0]).numel())
+    chunks, flat, f_all, touched = k3_block(hspec, hplan, table, blk_items, f, q, r)
     scratch = table.clone()
-    kr.add("hier_update_f32", "sk_hier_update_kernel<float>",
-           err=max_abs_err(hu.hier_update(hplan, table.clone(), chunks, f, q, r),
-                           hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
-           call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
-           plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-           n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + 8 * touched,
-           n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
-           shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, float32")
-    del scratch
+    row = kr.measure(
+        "hier_update_f32", "sk_hier_update_kernel<float",
+        err=both_routes_err(lambda: hu.hier_update(hplan, table.clone(), chunks, f, q, r),
+                            lambda: hu.hier_update_ref(hplan, table.clone(), chunks, f, q, r)),
+        call=lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
+        plain=lambda: hu.hier_update_ref(hplan, scratch, chunks, f, q, r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+        n_bytes=key_bytes(hspec.base.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + 8 * touched,
+        n_ops=hash_ops(hplan.plan, BLOCK) + 3 * w * BLOCK * hplan.n_levels,
+        shape=f"B={BLOCK} w={w} levels={hplan.n_levels} cols={cols}, float32")
+    row["geometry"] = fold_geometry_note(hplan, w, BLOCK, table.element_size())
+    with AllGlobal():
+        row["global_route_ms"] = cold_ms(lambda: hu.hier_update(hplan, scratch, chunks, f, q, r),
+                                         100, kr.evict)
+    log(f"K3f geometry {row['geometry']}; global route {row['global_route_ms']:.5f} ms")
+    kr.rows.append(row)
+    del scratch, chunks, flat, f_all
 
     # K1f: the float32 flat sketch
     plan, ftable = f_flat.plan, f_flat.table
@@ -1461,7 +1519,7 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
             hu.hier_update_signed(hplan, zero, chunks, v, q, r, s_q, s_r)
 
         per_leaf[name] = {"keys": n, "cold_ms": cold_ms(call, 5, kr.evict),
-                          "geometry": signed_geometry_note(hplan, zero.shape[0], n, 4)}
+                          "geometry": fold_geometry_note(hplan, zero.shape[0], n, 4)}
         with AllGlobal():
             per_leaf[name]["global_route_cold_ms"] = cold_ms(call, 5, kr.evict)
         del chunks, v, zero
@@ -1498,7 +1556,7 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
         shape=f"{name} {list(comp.plan.shape)}: B={n} w={w} levels={hplan.n_levels} "
               f"cols={cols}, float32; compared at all {len(leaves)} leaf shapes",
         reps=(10, 2, 5, 10))
-    row["geometry"] = signed_geometry_note(hplan, w, n, 4)
+    row["geometry"] = fold_geometry_note(hplan, w, n, 4)
     # what bounds K8f: the same keys and params into a finest level that
     # fits L2 (64 columns of a row range), and all-zero values, which skip
     # the hash; each beside the kernel's time above

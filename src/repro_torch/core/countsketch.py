@@ -91,11 +91,14 @@ def median_rows(rows: torch.Tensor) -> torch.Tensor:
     Rows are cast to float32 first (jnp promotes int32 before the median),
     sorted, and for even w the two middle rows are averaged as
     ``(a + b) * 0.5`` in float32.  ``torch.median`` would return the lower
-    middle row instead.
+    middle row instead.  A column that holds a NaN has median NaN, as in
+    ``jnp.median``: the sort puts NaN last, so the last sorted row marks
+    those columns.
     """
     x = rows.to(torch.float32).sort(dim=0).values
     w = x.shape[0]
-    return (x[(w - 1) // 2] + x[w // 2]) * 0.5
+    mid = (x[(w - 1) // 2] + x[w // 2]) * 0.5
+    return torch.where(torch.isnan(x[-1]), x[-1], mid)
 
 
 # --------------------------------------------------------------------------

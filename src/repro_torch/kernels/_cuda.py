@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sketch_kernels.cu", "signed_kernels.cu", "conservative_kernels.cu")
-HEADERS = ("hashes.cuh",)
+HEADERS = ("hashes.cuh", "hier_fold.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -185,8 +185,9 @@ def _declare(lib) -> None:
         "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
         "sk_sketch_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
         "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
-        "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
-        "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64, vp],
+        "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64,
+                               vp],
         "sk_hier_query": [vp, i64, i32, vp, i64, vp, i64, vp, vp],
         "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_update_signed_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],

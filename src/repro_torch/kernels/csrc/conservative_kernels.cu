@@ -44,6 +44,7 @@
 #include <cstdint>
 
 #include "hashes.cuh"
+#include "hier_fold.cuh"
 
 // Mirrored field for field by repro_torch/kernels/_cuda.py (ctypes): the
 // tables of one K5i launch, table l folded by CTA l.
@@ -243,17 +244,9 @@ __global__ void sk_chain_probe_kernel(const int32_t* next, int64_t n, int64_t st
   if (threadIdx.x == 0) out[0] = m;
 }
 
-// Dynamic shared memory above 48 KB needs the kernel's opt-in first; a
-// refused attribute (like a refused launch) is returned, never swallowed.
-template <typename K>
-int opt_in_smem(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
+// Dynamic shared memory above 48 KB: the opt-in shared with the hierarchy
+// folds (hier_fold.cuh), granted once per kernel and device.
+using sk_fold::opt_in_smem;
 
 template <typename T>
 int conservative_update(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,

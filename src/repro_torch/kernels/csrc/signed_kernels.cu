@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K6f,
-// K8f),
-// with a plain C interface for ctypes.  Built beside sketch_kernels.cu into
+// K8f), with a plain C interface for ctypes.  K8's body, shared with K3,
+// lives in hier_fold.cuh.  Built beside sketch_kernels.cu into
 // one shared library by repro_torch/kernels/_cuda.py:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
@@ -38,6 +38,7 @@
 #include <cstdint>
 
 #include "hashes.cuh"
+#include "hier_fold.cuh"
 
 namespace {
 
@@ -98,270 +99,6 @@ __global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
   out[k * n + b] = sk_apply_sign(table[k * h_pad + idx], (bits >> (plan.n_groups - 1)) & 1u);
 }
 
-// K8 replaces src/repro/kernels/hier_update.py `hier_update_signed_pallas`
-// (`_hier_kernel_signed_int`, `_tile_meta_signed`; as K8f,
-// `_hier_kernel_signed_f32`).  Folds a block into every level of the
-// concatenated [w, cols] table: hash the finest index and the packed sign
-// bits once per (row k, key b), then level l adds s_l * f at offsets[l] +
-// idx / divs[l], s_l being bit l.  The finest index is below 2^31
-// (make_hier_plan), so the unsigned division equals jax.lax.div.
-//
-// What bounded the first design (one thread per (row, key), gridDim.y = w,
-// L global atomics each), as chip_smoke.py measured it on an H100 80GB
-// HBM3 at 700 W: (1) same-address atomics on the coarse levels.  A level-0
-// cell is shared by every key of a prefix -- a matrix row of a gradient
-// leaf, a heavy source of the turnstile -- and those adds serialise in L2.
-// At the embed leaf (226.5M keys, w = 3) that put 680M float atomics onto
-// 6,516 addresses: 68.15 ms against 48.56 for `index_add_` of the same
-// values, and lm_head, whose rows are 10x longer runs of one cell, took
-// 169.7 ms.  On the turnstile block the top source holds 3,180 of 65,536
-// rows: 42.33 us against 37.70.  (2) Each key's chunks and value were read
-// from DRAM once per row, w times.
-//
-// What bounds this design: integer issue.  A key costs about 200
-// instructions a row (two Carter-Wegman passes, the range reductions, the
-// level divisions, the aggregation); the finest level's random atomics are
-// issued without waiting, and the keys' bytes (0.84 ms at DRAM rate at
-// embed) are read once.  chip_smoke.py's K8f row shows it: the same keys
-// into a finest level that fits L2 take as long, and all-zero values,
-// which skip the hashing, take a small fraction of the time.
-//
-// The design: one thread per key runs all w rows, so a key's chunks and
-// value leave DRAM once -- held in registers when the key has at most
-// kRegChunks chunks -- and each thread has w x L independent atomics in
-// flight.  The hash is K0/K0s fused into one pass with 32 x 32 -> 64-bit
-// products, and every division by a range or a level divisor is a multiply
-// and a shift (DivisorC).  A CTA walks spans of `span_tiles` consecutive
-// tiles of kThreads keys, grid-stride (span s goes to CTA s mod gridDim.x),
-// so one CTA meets long runs of keys that share a coarse cell, and a
-// sparse leaf's nonzero rows spread over every CTA.  Each level whose bit
-// is set in `shared_mask` is folded into a private copy in shared memory
-// (w x its padded columns): the lanes of a warp that hit one cell are
-// first combined (__match_any_sync, then __reduce_add_sync on int32 or a
-// shuffle tree on float32, whose shared atomicAdd the compiler makes a
-// compare-and-swap loop) and their leader adds once; at the end the CTA
-// adds each nonzero cell of its copy to the table with one global atomic.
-// The other levels add with global atomics directly.  The residency rule
-// (kernels/hier_update.py `signed_geometry`) picks the shared levels, the
-// CTAs and the span; both routes are this kernel.  int32 adds wrap, so any
-// grouping of them gives the plain fold's table; float32 adds are exact
-// while every partial sum is an integer below 2^24.
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kNoCell = 0xffffffffu;   // a dead lane's cell: above any real one
-constexpr int kHierCtasPerSm = 4;            // hier_update.CTAS_PER_SM
-
-// Division by an invariant d of a numerator below 2^31 as a multiply and a
-// shift (Granlund and Montgomery, 1994, Thm 4.2): with s = 31 + ceil(log2 d)
-// and m = ceil(2^s / d), n / d = (n * m) >> s for every n < 2^31, and
-// m < 2^32.  The launcher makes one per hash range and per level divisor.
-struct DivisorC {
-  uint32_t m, s;
-};
-
-struct HierDivsC {
-  DivisorC range[SK_MAX_GROUPS];  // the finest plan's group ranges
-  DivisorC level[SK_MAX_LEVELS];  // the levels' divisors
-};
-
-DivisorC make_divisor(uint32_t d) {
-  uint32_t l = 0;
-  while ((1ull << l) < d) ++l;
-  const uint64_t s = 31 + l;
-  return {(uint32_t)(((1ull << s) + d - 1) / d), (uint32_t)s};
-}
-
-__device__ __forceinline__ uint32_t div_by(const DivisorC& v, uint32_t n) {
-  return (uint32_t)(((uint64_t)n * v.m) >> v.s);
-}
-
-// x mod P31 in [0, P31) for x < 2^53, as sk_mod_p31, the second fold in 32
-// bits: (x >> 31) + (x & P31) is below 2^32.
-__device__ __forceinline__ uint32_t mod_p31_53(uint64_t x) {
-  const uint32_t P = 0x7FFFFFFFu;
-  uint32_t y = (uint32_t)(x >> 31) + ((uint32_t)x & P);
-  y = (y >> 31) + (y & P);
-  return y >= P ? y - P : y;
-}
-
-// The low 32 bits of an int64 entry: every hash param is below P31 and every
-// chunk below 2^16.
-__device__ __forceinline__ uint32_t lo32(const int64_t* __restrict__ p, int i) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p + i));
-}
-
-// Keys of at most kRegChunks chunks, in groups of one chunk or more, hold
-// them in registers (kChunks = kRegChunks below); others read them from the
-// chunk array for each row (kChunks = 0).
-constexpr int kRegChunks = 8;
-
-// composite_index and composite_sign_bits (K0, K0s) of one row, bit for
-// bit, in one pass over the key's chunks: each product is one 32 x 32 ->
-// 64-bit multiply, the sums stay below 2^53, and `% range` is div_by's
-// multiply and shift.  kChunks > 0: chunk t (group-major order) is xr[t],
-// and every group has a chunk, so group j ends at chunk group_start[j+1] - 1.
-template <int kChunks>
-__device__ __forceinline__ void index_and_sign_bits(
-    const IndexPlanC& plan, const HierDivsC& divs, const uint32_t* xr,
-    const int64_t* __restrict__ x, const int64_t* __restrict__ q,
-    const int64_t* __restrict__ r, const int64_t* __restrict__ sq,
-    const int64_t* __restrict__ sr, uint32_t& idx, uint32_t& bits) {
-  uint32_t cum = 0;
-  idx = 0;
-  bits = 0;
-  auto finish = [&](int j, uint64_t acc, uint64_t sacc) {
-    const uint32_t h = mod_p31_53(acc);
-    idx += (h - div_by(divs.range[j], h) * plan.ranges[j]) * plan.strides[j];
-    cum ^= mod_p31_53(sacc) & 1u;
-    bits |= cum << j;
-  };
-  if (kChunks > 0) {
-    int j = 0, end = plan.group_start[1];
-    uint64_t acc = lo32(r, 0), sacc = lo32(sr, 0);
-#pragma unroll
-    for (int t = 0; t < (kChunks > 0 ? kChunks : 1); ++t) {
-      if (t < plan.group_start[plan.n_groups]) {
-        const int c = plan.cols[t];
-        acc += (uint64_t)lo32(q, c) * xr[t];
-        sacc += (uint64_t)lo32(sq, c) * xr[t];
-        if (t + 1 == end) {
-          finish(j, acc, sacc);
-          if (++j < plan.n_groups) {
-            acc = lo32(r, j);
-            sacc = lo32(sr, j);
-            end = plan.group_start[j + 1];
-          }
-        }
-      }
-    }
-  } else {
-    for (int j = 0; j < plan.n_groups; ++j) {
-      uint64_t acc = lo32(r, j), sacc = lo32(sr, j);
-      for (int t = plan.group_start[j]; t < plan.group_start[j + 1]; ++t) {
-        const int c = plan.cols[t];
-        const uint32_t xc = lo32(x, c);
-        acc += (uint64_t)lo32(q, c) * xc;
-        sacc += (uint64_t)lo32(sq, c) * xc;
-      }
-      finish(j, acc, sacc);
-    }
-  }
-}
-
-// The sum of v over the lanes in `peers` (the calling lane among them),
-// complete in the lowest of them.  Every lane of the warp calls it.
-__device__ __forceinline__ int32_t peer_sum(unsigned peers, int32_t v) {
-  return __reduce_add_sync(peers, v);
-}
-
-__device__ __forceinline__ float peer_sum(unsigned peers, float v) {
-  if (peers == kFull) {   // one cell for the whole warp (uniform): a butterfly
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    return v;
-  }
-  const unsigned lane = threadIdx.x & 31u;
-  unsigned rank = __popc(peers & ((1u << lane) - 1u));   // place among the peers
-  unsigned above = peers & (0xfffffffeu << lane);        // peers on higher lanes
-  // a binary tree: each round, every peer still in adds the next one above
-  // it, and the peers at odd places drop out
-  while (__any_sync(kFull, above != 0u)) {
-    const int next = __ffs(above);
-    const float t = __shfl_sync(kFull, v, (next - 1) & 31);
-    if (next) v += t;
-    above &= ~__ballot_sync(kFull, rank & 1u);
-    rank >>= 1;
-  }
-  return v;
-}
-
-// Columns of level l in the concatenated table, its padding included.
-__host__ __device__ __forceinline__ int64_t level_cols(const LevelsC& levels, int64_t cols,
-                                                       int l) {
-  return (l + 1 < levels.n_levels ? levels.offsets[l + 1] : cols) - levels.offsets[l];
-}
-
-template <typename T, int kChunks>
-__global__ void __launch_bounds__(kThreads, kHierCtasPerSm)
-    sk_hier_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
-                                 const __grid_constant__ LevelsC levels,
-                                 T* __restrict__ table, int64_t cols, int32_t w,
-                                 const int64_t* __restrict__ chunks,
-                                 const T* __restrict__ freqs, int64_t n,
-                                 const int64_t* __restrict__ q,
-                                 const int64_t* __restrict__ r,
-                                 const int64_t* __restrict__ sq,
-                                 const int64_t* __restrict__ sr,
-                                 const __grid_constant__ HierDivsC divs,
-                                 uint32_t shared_mask, int64_t span_tiles) {
-  extern __shared__ __align__(16) unsigned char sk_smem[];
-  T* copy = reinterpret_cast<T*>(sk_smem);
-  const int n_levels = levels.n_levels;
-  int64_t copy_cells = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    if ((shared_mask >> l) & 1u) copy_cells += w * level_cols(levels, cols, l);
-  }
-  for (int64_t i = threadIdx.x; i < copy_cells; i += blockDim.x) copy[i] = T(0);
-  __syncthreads();
-
-  const unsigned lane = threadIdx.x & 31u;
-  const int64_t span = span_tiles * blockDim.x;
-  for (int64_t start = (int64_t)blockIdx.x * span; start < n;
-       start += (int64_t)gridDim.x * span) {
-    const int64_t end = start + span < n ? start + span : n;
-    for (int64_t tile = start; tile < end; tile += blockDim.x) {
-      const int64_t b = tile + threadIdx.x;
-      const T f = b < end ? freqs[b] : T(0);
-      const bool live = f != T(0);
-      if (!__any_sync(kFull, live)) continue;   // warp-uniform: a zero stretch
-      const int64_t* x = chunks + b * plan.total_chunks;
-      uint32_t xr[kChunks > 0 ? kChunks : 1];
-#pragma unroll
-      for (int t = 0; t < kChunks; ++t) {
-        xr[t] = live && t < plan.group_start[plan.n_groups] ? lo32(x, plan.cols[t]) : 0u;
-      }
-      for (int k = 0; k < w; ++k) {
-        uint32_t idx = 0, bits = 0;
-        if (live) {
-          index_and_sign_bits<kChunks>(plan, divs, xr, x, q + k * plan.total_chunks,
-                                       r + k * plan.n_groups, sq + k * plan.total_chunks,
-                                       sr + k * plan.n_groups, idx, bits);
-        }
-        T* row = table + k * cols;
-        int64_t base = 0;   // level l's copy in shared memory
-        for (int l = 0; l < n_levels; ++l) {
-          const uint32_t col = div_by(divs.level[l], idx);
-          const T v = sk_apply_sign(f, (bits >> l) & 1u);
-          const int64_t h = level_cols(levels, cols, l);
-          if ((shared_mask >> l) & 1u) {
-            const unsigned peers = __match_any_sync(kFull, live ? col : kNoCell);
-            const T sum = peer_sum(peers, v);
-            if (live && lane == (unsigned)(__ffs(peers) - 1) && sum != T(0)) {
-              atomicAdd(copy + base + k * h + col, sum);
-            }
-            base += w * h;
-          } else if (live) {
-            atomicAdd(row + levels.offsets[l] + col, v);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  int64_t base = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    if (!((shared_mask >> l) & 1u)) continue;
-    const int64_t h = level_cols(levels, cols, l);
-    for (int k = 0; k < w; ++k) {
-      T* row = table + k * cols + levels.offsets[l];
-      for (int64_t c = threadIdx.x; c < h; c += blockDim.x) {
-        const T v = copy[base + k * h + c];
-        if (v != T(0)) atomicAdd(row + c, v);
-      }
-    }
-    base += w * h;
-  }
-}
-
 // K9 replaces src/repro/kernels/hier_query.py `hier_candidate_query_signed`
 // (`_hier_kernel_signed`).  out[k, p, c] = table[k*row_stride + pp[k, p] +
 // cp[k, c]] * (int)sp[k, p] * (int)sc[k, c], one thread per (row k, p, c)
@@ -403,56 +140,6 @@ int launch_update_signed(const IndexPlanC* plan, T* table, int64_t h_pad, int32_
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory above 48 KB needs the kernel's opt-in first; a
-// refused attribute (like a refused launch) is returned, never swallowed,
-// and taken off the thread's last error so no later launch reports it.
-template <typename K>
-int opt_in_smem(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return (int)e;
-    }
-  }
-  return 0;
-}
-
-// `smem` is the shared bytes the Python rule computed for `shared_mask`; a
-// launch whose figure disagrees with the levels' is refused.
-template <typename T>
-int launch_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, T* table,
-                              int64_t cols, int32_t w, const int64_t* chunks, const T* freqs,
-                              int64_t n, const int64_t* q, const int64_t* r,
-                              const int64_t* sq, const int64_t* sr, uint32_t shared_mask,
-                              int32_t ctas, int64_t span_tiles, int64_t smem,
-                              void* stream) {
-  if (n <= 0) return 0;
-  int64_t want = 0;
-  for (int l = 0; l < levels->n_levels; ++l) {
-    if ((shared_mask >> l) & 1u) want += (int64_t)w * level_cols(*levels, cols, l) * sizeof(T);
-  }
-  if (want != smem || ctas <= 0 || span_tiles <= 0 || (shared_mask >> levels->n_levels) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  HierDivsC divs{};
-  bool in_registers = plan->total_chunks <= kRegChunks;
-  for (int j = 0; j < plan->n_groups; ++j) {
-    divs.range[j] = make_divisor(plan->ranges[j]);
-    in_registers &= plan->group_start[j + 1] > plan->group_start[j];
-  }
-  for (int l = 0; l < levels->n_levels; ++l) divs.level[l] = make_divisor(levels->divs[l]);
-  auto kernel = in_registers ? sk_hier_update_signed_kernel<T, kRegChunks>
-                             : sk_hier_update_signed_kernel<T, 0>;
-  const int rc = opt_in_smem(kernel, (size_t)smem);
-  if (rc) return rc;
-  kernel<<<ctas, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      *plan, *levels, table, cols, w, chunks, freqs, n, q, r, sq, sr, divs, shared_mask,
-      span_tiles);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -488,8 +175,9 @@ int sk_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, int32_t
                           const int64_t* r, const int64_t* sq, const int64_t* sr,
                           uint32_t shared_mask, int32_t ctas, int64_t span_tiles,
                           int64_t smem, void* stream) {
-  return launch_hier_update_signed(plan, levels, table, cols, w, chunks, freqs, n, q, r, sq,
-                                   sr, shared_mask, ctas, span_tiles, smem, stream);
+  return sk_fold::launch_hier_fold<int32_t, true>(plan, levels, table, cols, w, chunks, freqs,
+                                                  n, q, r, sq, sr, shared_mask, ctas,
+                                                  span_tiles, smem, stream);
 }
 
 int sk_hier_update_signed_f32(const IndexPlanC* plan, const LevelsC* levels, float* table,
@@ -498,8 +186,9 @@ int sk_hier_update_signed_f32(const IndexPlanC* plan, const LevelsC* levels, flo
                               const int64_t* r, const int64_t* sq, const int64_t* sr,
                               uint32_t shared_mask, int32_t ctas, int64_t span_tiles,
                               int64_t smem, void* stream) {
-  return launch_hier_update_signed(plan, levels, table, cols, w, chunks, freqs, n, q, r, sq,
-                                   sr, shared_mask, ctas, span_tiles, smem, stream);
+  return sk_fold::launch_hier_fold<float, true>(plan, levels, table, cols, w, chunks, freqs,
+                                                n, q, r, sq, sr, shared_mask, ctas, span_tiles,
+                                                smem, stream);
 }
 
 int sk_hier_query_signed(const int32_t* table, int64_t row_stride, int32_t w,

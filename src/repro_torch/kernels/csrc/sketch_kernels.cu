@@ -19,11 +19,12 @@
 // The folds K1 and K3 are templates on the table type: int32 tables take int32
 // frequencies and int32 atomics; float32 tables (K1f, K3f: the reference's
 // `_update_kernel_f32` and `_hier_kernel_f32` bodies) take float32 values and
-// float atomics.  A float atomicAdd rounds like the jnp scatter's adds but in
-// another order, so float32 tables equal the plain version bit for bit only
-// while every cell's partial sums are exact (integers below 2^24), the
-// reference's own contract (hier_update.py:35-38).  K2 and K4 read int32
-// tables only, as the reference's query kernels do.
+// float atomics.  K3's body, shared with the signed fold K8, lives in
+// hier_fold.cuh (`sk_hier_update_kernel`).  A float atomicAdd rounds like the
+// jnp scatter's adds but in another order, so float32 tables equal the plain
+// version bit for bit only while every cell's partial sums are exact
+// (integers below 2^24), the reference's own contract (hier_update.py:35-38).
+// K2 and K4 read int32 tables only, as the reference's query kernels do.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype).
 
@@ -33,6 +34,7 @@
 #include <cstdint>
 
 #include "hashes.cuh"
+#include "hier_fold.cuh"
 
 namespace {
 
@@ -85,38 +87,6 @@ __global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
   out[b] = best;
 }
 
-// K3 replaces src/repro/kernels/hier_update.py `hier_update_pallas`
-// (`_hier_kernel_int`, `_local_lanes`, `_tile_meta`; as K3f,
-// `_hier_kernel_f32`).  Folds a block into every
-// level of the concatenated [w, cols] table: hash once per (row k, key b),
-// then level l's cell is offsets[l] + idx / divs[l].  The finest index is
-// below 2^31 (checked by make_hier_plan), so the unsigned 32-bit division
-// equals jax.lax.div and the reference's uint32 floor division.
-// Bound: L random 4-byte read-modify-writes per (row, key) into a table
-// larger than L2.  The design shares one hash across the L levels, as the TPU
-// kernel's VMEM index scratch did, and replaces its per-tile one-hot matmuls
-// (which touched every cell of every tile) by L atomics.
-template <typename T>
-__global__ void sk_hier_update_kernel(const __grid_constant__ IndexPlanC plan,
-                                      const __grid_constant__ LevelsC levels,
-                                      T* __restrict__ table, int64_t cols,
-                                      const int64_t* __restrict__ chunks,
-                                      const T* __restrict__ freqs, int64_t n,
-                                      const int64_t* __restrict__ q,
-                                      const int64_t* __restrict__ r) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = blockIdx.y;
-  if (b >= n) return;
-  const T f = freqs[b];
-  if (f == T(0)) return;
-  const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
-                                       q + k * plan.total_chunks, r + k * plan.n_groups);
-  T* row = table + k * cols;
-  for (int l = 0; l < levels.n_levels; ++l) {
-    atomicAdd(row + levels.offsets[l] + idx / levels.divs[l], f);
-  }
-}
-
 // K4 replaces src/repro/kernels/hier_query.py `hier_candidate_query`
 // (`_hier_kernel`) and, with Q requests flattened onto the prefix axis,
 // `hier_candidate_query_batched`.  out[p, c] = min_k table[k*row_stride +
@@ -155,17 +125,6 @@ int launch_update(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hier_update(const IndexPlanC* plan, const LevelsC* levels, T* table, int64_t cols,
-                       int32_t w, const int64_t* chunks, const T* freqs, int64_t n,
-                       const int64_t* q, const int64_t* r, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_hier_update_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      *plan, *levels, table, cols, chunks, freqs, n, q, r);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -193,14 +152,20 @@ int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad,
 
 int sk_hier_update(const IndexPlanC* plan, const LevelsC* levels, int32_t* table, int64_t cols,
                    int32_t w, const int64_t* chunks, const int32_t* freqs, int64_t n,
-                   const int64_t* q, const int64_t* r, void* stream) {
-  return launch_hier_update(plan, levels, table, cols, w, chunks, freqs, n, q, r, stream);
+                   const int64_t* q, const int64_t* r, uint32_t shared_mask, int32_t ctas,
+                   int64_t span_tiles, int64_t smem, void* stream) {
+  return sk_fold::launch_hier_fold<int32_t, false>(plan, levels, table, cols, w, chunks, freqs,
+                                                   n, q, r, nullptr, nullptr, shared_mask,
+                                                   ctas, span_tiles, smem, stream);
 }
 
 int sk_hier_update_f32(const IndexPlanC* plan, const LevelsC* levels, float* table,
                        int64_t cols, int32_t w, const int64_t* chunks, const float* freqs,
-                       int64_t n, const int64_t* q, const int64_t* r, void* stream) {
-  return launch_hier_update(plan, levels, table, cols, w, chunks, freqs, n, q, r, stream);
+                       int64_t n, const int64_t* q, const int64_t* r, uint32_t shared_mask,
+                       int32_t ctas, int64_t span_tiles, int64_t smem, void* stream) {
+  return sk_fold::launch_hier_fold<float, false>(plan, levels, table, cols, w, chunks, freqs, n,
+                                                 q, r, nullptr, nullptr, shared_mask, ctas,
+                                                 span_tiles, smem, stream);
 }
 
 int sk_hier_query(const int32_t* table, int64_t row_stride, int32_t w, const int64_t* pp,

@@ -9,22 +9,21 @@ nest in the mixed radix,
 
 so one composite hash per (row, item) determines every level's cell.  The
 levels live concatenated in one padded table ``[w, sum_L h_L_pad]``.  The
-TPU kernel walks that table tile by tile with one-hot limb matmuls; the
-Hopper kernel (``sk_hier_update_kernel`` in ``csrc/sketch_kernels.cu``)
-runs one thread per (row, item), hashes once and adds with one int32
-``atomicAdd`` per level.  :func:`hier_update_ref` is its plain PyTorch
-version; the wrapper runs it only for tensors on the CPU.  Both update the
-table in place (the reference donates it).
+TPU kernel walks that table tile by tile with one-hot limb matmuls.
 
 K8 is the signed fold of ``hier_update_signed_pallas``: level L adds
 ``s_L(x) * f``, where s_L is bit L of the packed cumulative sign parities.
-Its kernel (``sk_hier_update_signed_kernel`` in ``csrc/signed_kernels.cu``)
-runs one thread per item over all w rows: it hashes the finest index and
-the sign bits once per (row, item), folds the coarse levels that
-:func:`signed_geometry` puts in shared memory into a private copy per CTA
+
+Both run one Hopper body (``csrc/hier_fold.cuh``, entry points
+``sk_hier_update_kernel`` and ``sk_hier_update_signed_kernel``): one
+thread per item over all w rows hashes the finest index (and the sign
+bits) once per (row, item), folds the coarse levels that
+:func:`fold_geometry` puts in shared memory into a private copy per CTA
 (lanes that hit one cell combined first), adds the other levels with
 global atomics, and flushes each CTA's copy at the end.
-:func:`hier_update_signed_ref` is its plain version.
+:func:`hier_update_ref` and :func:`hier_update_signed_ref` are their plain
+versions; the wrappers run them only for tensors on the CPU.  All update
+the table in place (the reference donates it).
 
 On float32 tables the same kernels run as K3f and K8f (the reference's
 ``_hier_kernel_f32`` and ``_hier_kernel_signed_f32``): float32 values, the
@@ -119,8 +118,9 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
     table [w, hplan.padded_cols]; chunks int64[B, C] in the finest level's
     (group-major) layout; freqs [B]; q int64[w, C]; r int64[w, m] -- the
     shared family.  Zero-frequency rows are no-ops; level pad columns are
-    never hit.  CUDA tensors launch K3 (int32 tables) or K3f (float32);
-    CPU tensors take :func:`hier_update_ref`.
+    never hit.  CUDA tensors launch K3 (int32 tables) or K3f (float32)
+    with the launch :func:`fold_geometry` picks; CPU tensors take
+    :func:`hier_update_ref`.
     """
     w, cols = table.shape
     if cols != hplan.padded_cols:
@@ -129,32 +129,15 @@ def hier_update(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
             f"{hplan.padded_cols}")
     if not table.is_cuda:
         return hier_update_ref(hplan, table, chunks, freqs, q, r)
-    name, symbol, vdtype = _cuda.fold_variant(table, "hier_update", "sk_hier_update")
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
-    freqs = freqs.to(vdtype)
-    _cuda.require_on(table.device, name, freqs=freqs)
-    b = chunks.shape[0]
-    _cuda.require(tuple(freqs.shape) == (b,),
-                  f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
-    plan_c = _cuda.plan_struct(hplan.plan)
-    levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
-    lib = _cuda.library()
-    with torch.cuda.device(table.device):
-        rc = getattr(lib, symbol)(
-            ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
-            cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
-            r.data_ptr(), _cuda.stream_of(table))
-    _cuda.check(rc, name)
-    _cuda.LAUNCHES[name] += 1
-    return table
+    return _launch(hplan, table, chunks, freqs, q, r)
 
 
-# The launch of the signed fold (K8, K8f).  One CTA's dynamic shared memory
-# and one SM's on an H100 (227 KB and 228 KB; the SM keeps 1 KB a CTA).
+# The launch of both folds (K3, K3f, K8, K8f).  One CTA's dynamic shared
+# memory and one SM's on an H100 (227 KB and 228 KB; the SM keeps 1 KB a CTA).
 SHARED_BYTES = 232_448
 SM_SHARED_BYTES = 233_472
 CTA_RESERVED_BYTES = 1_024
-THREADS = 256       # kThreads in csrc/signed_kernels.cu: the items of a tile
+THREADS = 256       # kFoldThreads in csrc/hier_fold.cuh: the items of a tile
 CTAS_PER_SM = 4     # kHierCtasPerSm there, the kernel's __launch_bounds__
 # A CTA walks spans of SPAN_TILES consecutive tiles (16,384 items: over
 # three rows of a 4,608-wide gradient matrix), so the items that share a
@@ -163,15 +146,21 @@ CTAS_PER_SM = 4     # kHierCtasPerSm there, the kernel's __launch_bounds__
 SPAN_TILES = 64
 # A coarse level repays its shared copy when a CTA folds at least one item
 # per REPAY of the level's cells a row.  Zeroing and scanning a cell costs
-# about 7 instructions a row, hashing an item and adding it about 200 (two
-# Carter-Wegman passes, the level divisions), so the copy then costs at
-# most about as much again as the CTA's hashing, and it turns the adds of
-# the items that share a cell into one global atomic a CTA.
+# about 7 instructions a row, hashing an item and adding it about 200 signed
+# (two Carter-Wegman passes, the level divisions), about 100 unsigned, so
+# the copy then costs at most about as much again as the CTA's signed
+# hashing (twice its unsigned hashing), and it turns the adds of the items
+# that share a cell into one global atomic a CTA.  One constant serves both
+# folds: on the main path's blocks (256 items a CTA for level 0's 4,096
+# cells, one item per 16 cells) the unsigned fold's shared route took 0.59x
+# and 0.16x the all-global route's time on an H100 80GB HBM3 at 700 W
+# (chip_smoke.py's K3 row, block 0 and the heaviest block; PERF.md), so the
+# copy repays there at half the signed fold's hashing as well.
 REPAY = 32
 
 
-class SignedGeometry(NamedTuple):
-    """The launch of the signed fold: which levels each CTA folds in its own
+class FoldGeometry(NamedTuple):
+    """The launch of a hierarchy fold: which levels each CTA folds in its own
     shared copy, and how the items are dealt to the CTAs -- spans of
     ``span_tiles`` tiles of THREADS items, span s to CTA s mod ``ctas``."""
     shared: Tuple[bool, ...]    # per level
@@ -193,9 +182,9 @@ def _deal(n: int, smem: int, sms: int) -> Tuple[int, int]:
     return min(most, -(-tiles // span)), span
 
 
-def signed_geometry(hplan: HierPlan, w: int, n: int, itemsize: int, sms: int,
-                    shared_bytes: Optional[int] = None) -> SignedGeometry:
-    """The residency rule of K8/K8f for a block of ``n`` items into a
+def fold_geometry(hplan: HierPlan, w: int, n: int, itemsize: int, sms: int,
+                  shared_bytes: Optional[int] = None) -> FoldGeometry:
+    """The residency rule of K3/K3f and K8/K8f for a block of ``n`` items into a
     ``[w, hplan.padded_cols]`` table of ``itemsize``-byte cells on a card of
     ``sms`` SMs.  Coarse levels, coarsest first, go to shared memory while
     their ``w x padded cells`` copies fit the budget (SHARED_BYTES unless
@@ -217,12 +206,45 @@ def signed_geometry(hplan: HierPlan, w: int, n: int, itemsize: int, sms: int,
         if n * REPAY < c * pad:
             continue
         shared[lvl], smem, ctas, span = True, smem + cost, c, s
-    return SignedGeometry(tuple(shared), ctas, span, smem)
+    return FoldGeometry(tuple(shared), ctas, span, smem)
 
 
 @functools.lru_cache(maxsize=16)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
+            freqs: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+            signs: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+    """Launch K3/K3f, or K8/K8f when ``signs`` holds (sq, sr), on a CUDA
+    table with the launch :func:`fold_geometry` picks; raise if it fails."""
+    kind = "hier_update_signed" if signs else "hier_update"
+    name, symbol, vdtype = _cuda.fold_variant(table, kind, "sk_" + kind)
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
+    if signs:
+        _cuda.require_hash_inputs(name, hplan.plan, table, chunks, *signs, _cuda.FOLD_DTYPES)
+    freqs = freqs.to(vdtype)
+    _cuda.require_on(table.device, name, freqs=freqs)
+    b = chunks.shape[0]
+    _cuda.require(tuple(freqs.shape) == (b,),
+                  f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
+    w, cols = table.shape
+    geometry = fold_geometry(hplan, w, b, table.element_size(),
+                             _sm_count(table.device.index))
+    plan_c = _cuda.plan_struct(hplan.plan)
+    levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
+    lib = _cuda.library()
+    with torch.cuda.device(table.device):
+        rc = getattr(lib, symbol)(
+            ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
+            cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
+            r.data_ptr(), *(t.data_ptr() for t in signs), geometry.shared_mask,
+            geometry.ctas, geometry.span_tiles, geometry.shared_bytes,
+            _cuda.stream_of(table))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return table
 
 
 def hier_update_signed_ref(hplan: HierPlan, table: torch.Tensor,
@@ -255,7 +277,7 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
 
     As :func:`hier_update`, plus the shared sign params sq int64[w, C] and
     sr int64[w, m]; freqs may be negative.  CUDA tensors launch K8 (int32
-    tables) or K8f (float32) with the launch :func:`signed_geometry` picks;
+    tables) or K8f (float32) with the launch :func:`fold_geometry` picks;
     CPU tensors take :func:`hier_update_signed_ref`.
     """
     w, cols = table.shape
@@ -265,27 +287,4 @@ def hier_update_signed(hplan: HierPlan, table: torch.Tensor,
             f"{hplan.padded_cols}")
     if not table.is_cuda:
         return hier_update_signed_ref(hplan, table, chunks, freqs, q, r, sq, sr)
-    name, symbol, vdtype = _cuda.fold_variant(table, "hier_update_signed",
-                                              "sk_hier_update_signed")
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, sq, sr, _cuda.FOLD_DTYPES)
-    freqs = freqs.to(vdtype)
-    _cuda.require_on(table.device, name, freqs=freqs)
-    b = chunks.shape[0]
-    _cuda.require(tuple(freqs.shape) == (b,),
-                  f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
-    geometry = signed_geometry(hplan, w, b, table.element_size(),
-                               _sm_count(table.device.index))
-    plan_c = _cuda.plan_struct(hplan.plan)
-    levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
-    lib = _cuda.library()
-    with torch.cuda.device(table.device):
-        rc = getattr(lib, symbol)(
-            ctypes.byref(plan_c), ctypes.byref(levels_c), table.data_ptr(),
-            cols, w, chunks.data_ptr(), freqs.data_ptr(), b, q.data_ptr(),
-            r.data_ptr(), sq.data_ptr(), sr.data_ptr(), geometry.shared_mask,
-            geometry.ctas, geometry.span_tiles, geometry.shared_bytes,
-            _cuda.stream_of(table))
-    _cuda.check(rc, name)
-    _cuda.LAUNCHES[name] += 1
-    return table
+    return _launch(hplan, table, chunks, freqs, q, r, (sq, sr))

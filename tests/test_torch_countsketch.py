@@ -182,6 +182,32 @@ def test_median_of_rows_near_2_24_matches_reference(w):
         assert float(torch.median(rows, dim=0).values[0]) == 3.0
 
 
+@pytest.mark.parametrize("w", [2, 3, 4, 5])
+def test_median_of_rows_with_nan_and_inf_matches_reference(w):
+    """A column that holds a NaN has median NaN, as jnp.median gives it;
+    +-inf sort as values (inf - inf in the even-w midpoint is NaN too)."""
+    nan, inf = np.nan, np.inf
+    example = np.array([[1, 5, inf, -inf], [2, nan, inf, 1], [nan, 7, -inf, 2]],
+                       np.float32)
+    rng = np.random.default_rng(70 + w)
+    rows = rng.integers(-50, 50, (w, 40)).astype(np.float32)
+    rows[:, :4] = np.resize(example, (w, 4))
+    rows[:, 4] = [inf, -inf, inf, -inf, inf][:w]       # inf and -inf, no NaN
+    rows[:, 5] = [inf, 3, inf, 3, inf][:w]
+    rows[:, 6] = [-inf, -inf, 1, -inf, 2][:w]
+    for c in range(7, 40):                             # a NaN in some rows
+        k = int(rng.integers(0, w + 2))
+        if k < w:
+            rows[k, c] = nan
+            if c % 3 == 0:
+                rows[(k + 1) % w, c] = rng.choice([inf, -inf, nan])
+    if w == 3:
+        _eq(jnp.median(jnp.asarray(example), axis=0), np.array([nan, nan, inf, 1]))
+        _eq(np.array([nan, nan, inf, 1], np.float32),
+            pcs.median_rows(torch.from_numpy(example)))
+    _eq(jnp.median(jnp.asarray(rows), axis=0), pcs.median_rows(torch.from_numpy(rows)))
+
+
 def test_l2estimate_and_merge_match_reference():
     rspec, pspec = _specs(4)
     rp, pp = _params(rspec, 60)

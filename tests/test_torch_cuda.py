@@ -12,7 +12,7 @@ small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
 multiples, int32 wraparound, negative (turnstile) frequencies, strided
 level views, and both residency routes of the conservative fold (K5, K5i)
-and of the signed hierarchy fold (K8, K8f) on int32 and float32 tables.
+and of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables.
 """
 import numpy as np
 import pytest
@@ -71,6 +71,18 @@ def _random_table(shape, seed, device, lo=-(1 << 20), hi=1 << 20):
     return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32)).to(device)
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _all_global(monkeypatch, hplan, w, n, device):
+    """Force a hierarchy fold's other route (K3, K3f, K8, K8f): the same kernel with every level on
+    global atomics."""
+    geometry = hu.fold_geometry(hplan, w, n, 4, _sms(device), shared_bytes=0)
+    assert not any(geometry.shared)
+    monkeypatch.setattr(hu, "fold_geometry", lambda *args, **kw: geometry)
+
+
 def test_k1_k2_flat_sketch_match_plain(cuda):
     spec = _hspec().levels[-1]
     plan = make_plan(spec)
@@ -93,12 +105,18 @@ def test_k1_k2_flat_sketch_match_plain(cuda):
     assert torch.equal(est, sq.sketch_query_ref(plan, got, chunks, params.q, params.r))
 
 
-def test_k3_fused_hierarchy_update_matches_plain(cuda):
+@pytest.mark.parametrize("route", ["rule", "global"])
+def test_k3_fused_hierarchy_update_matches_plain(cuda, monkeypatch, route):
     hspec = _hspec()
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     params = _params(hspec.levels[-1], 3, cuda)
     table = _random_table((hspec.base.width, hplan.padded_cols), 4, cuda)
     got, want = table.clone(), table.clone()
+    if route == "global":
+        _all_global(monkeypatch, hplan, hspec.base.width, 2000, cuda)
+    else:
+        assert any(hu.fold_geometry(hplan, hspec.base.width, 2000, 4, _sms(cuda)).shared)
+    n0 = _cuda.LAUNCHES["hier_update"]
     for seed in (5, 6):                               # multiple blocks
         items, freqs = _block(hspec, 2000, seed)
         ordered = hspec.level_items(hspec.n_levels - 1, items)
@@ -108,10 +126,12 @@ def test_k3_fused_hierarchy_update_matches_plain(cuda):
         hu.hier_update(hplan, got, chunks, f, params.q, params.r)
         hu.hier_update_ref(hplan, want, chunks, f, params.q, params.r)
     torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["hier_update"] == n0 + 2
     assert torch.equal(got, want)
 
 
-def test_k1_k3_int32_wraparound_matches_plain(cuda):
+@pytest.mark.parametrize("route", ["rule", "global"])
+def test_k1_k3_int32_wraparound_matches_plain(cuda, monkeypatch, route):
     hspec = _hspec(w=2)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     params = _params(hspec.levels[-1], 7, cuda)
@@ -122,10 +142,81 @@ def test_k1_k3_int32_wraparound_matches_plain(cuda):
     chunks = hspec.levels[-1].schema.module_chunks(
         torch.from_numpy(hspec.level_items(2, items).astype(np.int64)).to(cuda))
     f = torch.from_numpy(freqs).to(cuda)
+    if route == "global":
+        _all_global(monkeypatch, hplan, 2, 1500, cuda)
+    else:
+        assert hu.fold_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
     got = hu.hier_update(hplan, table.clone(), chunks, f, params.q, params.r)
     want = hu.hier_update_ref(hplan, table.clone(), chunks, f, params.q, params.r)
     assert torch.equal(got, want)
     assert int(got.min()) < 0                         # it did wrap
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("tile_h", [128, 1])
+@pytest.mark.parametrize("order,n", [("shuffled", 5003), ("sorted", 5003),
+                                     ("one_cell", 5003), ("sorted", 100),
+                                     ("shuffled", 1000), ("one_cell", 256)])
+def test_k3_k3f_both_routes_match_plain(cuda, monkeypatch, dtype, tile_h, order, n):
+    """K3 and K3f on the rule's route (two coarse levels in shared memory
+    at 5,003, 1,000 and 256 keys, level 0 alone at 100, below one CTA's
+    tile) and on the all-global route, each against the plain fold:
+    skewed, sorted and single-cell blocks (every key on one level-0 cell,
+    as a heavy source's run on the main path) with duplicate keys and
+    zero-frequency rows, n a multiple of the tile or not, padded and
+    unpadded levels.  Integer values: exact on both table types."""
+    hspec = _hspec(w=4)
+    hplan = hu.make_hier_plan(hspec, tile_h=tile_h)
+    params = _params(hspec.levels[-1], 80, cuda)
+    items, freqs = _skewed_block(hspec, n, 81, order)
+    freqs = np.abs(freqs) % (4096 if dtype == torch.int32 else 1024)
+    freqs[: n // 7] = 0                               # a zero stretch, whole warps
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
+    base = (_random_table((4, hplan.padded_cols), 82, cuda) if dtype == torch.int32
+            else torch.zeros((4, hplan.padded_cols), device=cuda))
+    f = torch.from_numpy(freqs.astype(np.int32)).to(cuda, dtype)
+    rule = hu.fold_geometry(hplan, 4, n, 4, _sms(cuda))
+    assert rule.shared == ((True, True, False) if n > 100 else (True, False, False))
+    name = "hier_update" + ("_f32" if dtype == torch.float32 else "")
+    n0 = _cuda.LAUNCHES[name]
+    want = hu.hier_update_ref(hplan, base.clone(), chunks, f, params.q, params.r)
+    got = hu.hier_update(hplan, base.clone(), chunks, f, params.q, params.r)
+    _all_global(monkeypatch, hplan, 4, n, cuda)
+    again = hu.hier_update(hplan, base.clone(), chunks, f, params.q, params.r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == n0 + 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert not torch.equal(got, base)
+
+
+def test_k3_sorted_block_on_one_level0_cell_matches_plain(cuda, monkeypatch):
+    """The main path's spec (ranges 4,096 x 4,096, w = 4, one 65,536-row
+    block) with every key of one source, as the stream's heaviest block
+    nearly is: every lane of every warp adds to one level-0 cell a row."""
+    schema = KeySchema(domains=(1 << 32, 1 << 32))
+    hspec = hh.HierarchySpec.from_spec(
+        sk.mod_sketch_spec(schema, [(0,), (1,)], (4096, 4096), 4))
+    hplan = hu.make_hier_plan(hspec)
+    params = _params(hspec.levels[-1], 83, cuda)
+    rng = np.random.default_rng(84)
+    n = 1 << 16
+    items = np.stack([np.full(n, 123456789, np.uint32),
+                      np.sort(rng.integers(0, 1 << 32, n, dtype=np.uint64)).astype(
+                          np.uint32)], axis=1)
+    freqs = rng.integers(1, 300, n).astype(np.int32)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(1, items), cuda)
+    f = torch.from_numpy(freqs).to(cuda)
+    rule = hu.fold_geometry(hplan, 4, n, 4, _sms(cuda))
+    assert rule.shared == (True, False) and rule.shared_bytes == 4 * 4096 * 4
+    base = _random_table((4, hplan.padded_cols), 85, cuda)
+    want = hu.hier_update_ref(hplan, base.clone(), chunks, f, params.q, params.r)
+    got = hu.hier_update(hplan, base.clone(), chunks, f, params.q, params.r)
+    _all_global(monkeypatch, hplan, 4, n, cuda)
+    again = hu.hier_update(hplan, base.clone(), chunks, f, params.q, params.r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    level0 = (want - base)[:, : hplan.level_pads[0]]
+    assert int((level0 != 0).sum()) == 4              # one cell a row took it all
 
 
 def test_k4_candidate_grid_on_level_views_matches_plain(cuda):
@@ -303,18 +394,6 @@ def test_k8_signed_hierarchy_update_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
-def _sms(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _all_global(monkeypatch, hplan, w, n, device):
-    """Force K8/K8f's other route: the same kernel with every level on
-    global atomics."""
-    geometry = hu.signed_geometry(hplan, w, n, 4, _sms(device), shared_bytes=0)
-    assert not any(geometry.shared)
-    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: geometry)
-
-
 def test_k6_k8_int32_wraparound_matches_plain(cuda, monkeypatch):
     hspec = _hspec(w=2)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
@@ -324,7 +403,7 @@ def test_k6_k8_int32_wraparound_matches_plain(cuda, monkeypatch):
     freqs[::2] *= -1
     f = torch.from_numpy(freqs).to(cuda)
     chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
-    assert hu.signed_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
+    assert hu.fold_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
     for lo, hi in (((1 << 31) - (1 << 24), (1 << 31) - 1),
                    (-(1 << 31), -(1 << 31) + (1 << 24))):
         table = _random_table((2, hplan.padded_cols), 29, cuda, lo=lo, hi=hi)
@@ -380,7 +459,7 @@ def test_k8_k8f_both_routes_match_plain(cuda, monkeypatch, dtype, tile_h, order,
         base = torch.zeros((4, hplan.padded_cols), device=cuda)
         freqs = np.sign(freqs) * (np.abs(freqs) % 256)
     f = torch.from_numpy(freqs.astype(np.int32)).to(cuda, dtype)
-    rule = hu.signed_geometry(hplan, 4, n, 4, _sms(cuda))
+    rule = hu.fold_geometry(hplan, 4, n, 4, _sms(cuda))
     assert rule.shared == ((True, True, False) if n > 1000 else (True, False, False))
     name = "hier_update_signed" + ("_f32" if dtype == torch.float32 else "")
     n0 = _cuda.LAUNCHES[name]
@@ -411,7 +490,7 @@ def test_k8_k8f_keys_of_many_chunks_match_plain(cuda, monkeypatch, dtype):
     chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
     f = torch.from_numpy(freqs).to(cuda, dtype)
     base = torch.zeros((3, hplan.padded_cols), dtype=dtype, device=cuda)
-    assert hu.signed_geometry(hplan, 3, 3001, 4, _sms(cuda)).shared[0]
+    assert hu.fold_geometry(hplan, 3, 3001, 4, _sms(cuda)).shared[0]
     want = hu.hier_update_signed_ref(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
     got = hu.hier_update_signed(hplan, base.clone(), chunks, f, q, r, s_q, s_r)
     _all_global(monkeypatch, hplan, 3, 3001, cuda)
@@ -431,9 +510,9 @@ def test_k8_refuses_a_launch_it_cannot_make(cuda, monkeypatch):
     chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
     f = torch.from_numpy(freqs).to(cuda)
     table = torch.zeros((4, hplan.padded_cols), dtype=torch.int32, device=cuda)
-    rule = hu.signed_geometry(hplan, 4, 300, 4, _sms(cuda))
+    rule = hu.fold_geometry(hplan, 4, 300, 4, _sms(cuda))
     wrong = rule._replace(shared_bytes=rule.shared_bytes + 4)
-    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: wrong)
+    monkeypatch.setattr(hu, "fold_geometry", lambda *args, **kw: wrong)
     n0 = _cuda.LAUNCHES["hier_update_signed"]
     with pytest.raises(RuntimeError, match="failed to launch"):
         hu.hier_update_signed(hplan, table, chunks, f, q, r, s_q, s_r)
@@ -441,9 +520,9 @@ def test_k8_refuses_a_launch_it_cannot_make(cuda, monkeypatch):
     big = hh.HierarchySpec.from_spec(
         sk.mod_sketch_spec(schema, [(0,), (1,)], (65536, 64), 1))
     bplan = hu.make_hier_plan(big, tile_h=128)
-    too_big = hu.SignedGeometry((True, False), 1, 1, 65536 * 4)
+    too_big = hu.FoldGeometry((True, False), 1, 1, 65536 * 4)
     assert too_big.shared_bytes > hu.SHARED_BYTES
-    monkeypatch.setattr(hu, "signed_geometry", lambda *args, **kw: too_big)
+    monkeypatch.setattr(hu, "fold_geometry", lambda *args, **kw: too_big)
     (q, r), s_q, s_r = _signed_params(big.levels[-1], 65, cuda)
     bchunks = _chunks(big.levels[-1], big.level_items(1, items[:, :2]), cuda)
     with pytest.raises(RuntimeError, match="failed to launch"):
@@ -713,13 +792,16 @@ def test_k1f_float32_flat_fold_matches_plain(cuda, kind):
     _f32_equal(got, want, kind)
 
 
+@pytest.mark.parametrize("route", ["rule", "global"])
 @pytest.mark.parametrize("kind", ["integer", "gaussian"])
-def test_k3f_float32_hierarchy_fold_matches_plain(cuda, kind):
+def test_k3f_float32_hierarchy_fold_matches_plain(cuda, monkeypatch, kind, route):
     hspec = _hspec()
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     params = _params(hspec.levels[-1], 44, cuda)
     got = torch.zeros((hspec.base.width, hplan.padded_cols), device=cuda)
     want = got.clone()
+    if route == "global":
+        _all_global(monkeypatch, hplan, hspec.base.width, 2000, cuda)
     n0 = _cuda.LAUNCHES["hier_update_f32"]
     for seed in (45, 46):
         items, freqs = _block(hspec, 2000, seed)

@@ -1,11 +1,11 @@
-"""The residency rule and launch geometry of the signed hierarchy fold (K8,
-K8f): ``kernels/hier_update.signed_geometry``.
+"""The residency rule and launch geometry of the hierarchy folds (K3, K3f,
+K8, K8f): ``kernels/hier_update.fold_geometry``.
 
 Pure Python, no card: which levels a CTA folds in shared memory, the
 shared bytes, the CTAs and their spans, for the shapes the port's callers
-launch (the starcoder2-7b compressor's nine leaves, the turnstile block)
-and for random ones; and a walk of the kernel's grid-stride loop over the
-spans, which must cover every key exactly once.
+launch (the main path's block, the starcoder2-7b compressor's nine leaves,
+the turnstile block) and for random ones; and a walk of the kernel's
+grid-stride loop over the spans, which must cover every key exactly once.
 """
 import dataclasses
 
@@ -19,6 +19,7 @@ from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
 from repro_torch.core.hashing import KeySchema
 from repro_torch.kernels import hier_update as hu
+from repro_torch.kernels.ops import KernelHierarchy
 from repro_torch.models import transformer as tfm
 from repro_torch.training import grad_compression as gc
 
@@ -75,7 +76,7 @@ def test_compressor_leaves_fold_level0_in_shared_and_finest_global(name, shape):
     plan = gc._leaf_plan(cc, shape)
     hplan = hu.make_hier_plan(plan.hspec, tile_h=1)       # as hier_fold_zero_tables
     n = plan.rows * plan.cols
-    g = hu.signed_geometry(hplan, cc.width, n, 4, SMS)
+    g = hu.fold_geometry(hplan, cc.width, n, 4, SMS)
     assert g.shared == (True, False)
     assert g.shared_bytes == cc.width * hplan.level_sizes[0] * 4
     _check_invariants(g, hplan, cc.width, n, 4, SMS)
@@ -90,10 +91,39 @@ def test_turnstile_block_folds_level0_in_shared(n, level0):
     blocks of 65,536 rows (54,608 in the stream's last).  A lone key does
     not repay zeroing and scanning a 16,384-cell copy."""
     hplan = _hplan((4096, 4096), 4)
-    g = hu.signed_geometry(hplan, 4, n, 4, SMS)
+    g = hu.fold_geometry(hplan, 4, n, 4, SMS)
     assert g.shared == (level0, False)
     assert g.shared_bytes == (4 * 4096 * 4 if level0 else 0)
     _check_invariants(g, hplan, 4, n, 4, SMS)
+    if n == 65536:
+        assert (g.ctas, g.span_tiles) == (256, 1)
+
+
+def _main_path_hplan():
+    """chip_smoke.py's main path: per-(src, dst) heavy hitters over a
+    two-module 32-bit key, ranges 4,096 x 4,096, w = 4, the hierarchy as
+    the endpoint's ``KernelHierarchy`` lays it out."""
+    spec = sk.mod_sketch_spec(KeySchema(domains=(1 << 32, 1 << 32)), [(0,), (1,)],
+                              (4096, 4096), 4)
+    hspec = hh.HierarchySpec.from_spec(spec)
+    q = torch.zeros((4, spec.schema.total_chunks), dtype=torch.int64)
+    r = torch.zeros((4, spec.n_groups), dtype=torch.int64)
+    return KernelHierarchy(hspec, (q, r), device="cpu").hplan
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("n,level0", [(65536, True), (14560, True), (1000, True),
+                                      (1, False)])
+def test_main_path_block_folds_level0_in_shared(dtype, n, level0):
+    """K3 (int32) and K3f (float32) on the main path's blocks of 65,536 rows
+    (14,560 in the stream's last): level 0's 4 x 4,096 cells (65,536 B) in
+    shared memory, 256 CTAs of one tile each, the finest level global."""
+    hplan = _main_path_hplan()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    g = hu.fold_geometry(hplan, 4, n, itemsize, SMS)
+    assert g.shared == (level0, False)
+    assert g.shared_bytes == (65536 if level0 else 0)
+    _check_invariants(g, hplan, 4, n, itemsize, SMS)
     if n == 65536:
         assert (g.ctas, g.span_tiles) == (256, 1)
 
@@ -104,7 +134,7 @@ def test_turnstile_block_folds_level0_in_shared(n, level0):
 def test_coarse_level_over_the_budget_goes_global(ranges, want):
     hplan = _hplan(ranges, 4)
     n = 1 << 20
-    g = hu.signed_geometry(hplan, 4, n, 4, SMS)
+    g = hu.fold_geometry(hplan, 4, n, 4, SMS)
     assert g.shared == want
     _check_invariants(g, hplan, 4, n, 4, SMS)
 
@@ -115,16 +145,16 @@ def test_two_coarse_levels_share_the_budget():
     schema = KeySchema(domains=(1 << 32, 256, 1000, 4096))
     base = sk.mod_sketch_spec(schema, [(1, 2), (0,), (3,)], (48, 90, 7), 4)
     hplan = hu.make_hier_plan(hh.HierarchySpec.from_spec(base), tile_h=128)
-    g = hu.signed_geometry(hplan, 4, 5003, 4, SMS)
+    g = hu.fold_geometry(hplan, 4, 5003, 4, SMS)
     assert g.shared == (True, True, False)
     assert g.shared_bytes == 4 * (128 + 4352) * 4
     _check_invariants(g, hplan, 4, 5003, 4, SMS)
-    assert hu.signed_geometry(hplan, 4, 100, 4, SMS).shared == (True, False, False)
+    assert hu.fold_geometry(hplan, 4, 100, 4, SMS).shared == (True, False, False)
 
 
 def test_no_shared_budget_keeps_every_level_global():
     hplan = _hplan((4096, 4096), 4)
-    g = hu.signed_geometry(hplan, 4, 65536, 4, SMS, shared_bytes=0)
+    g = hu.fold_geometry(hplan, 4, 65536, 4, SMS, shared_bytes=0)
     assert g.shared == (False, False) and g.shared_bytes == 0 and g.shared_mask == 0
     _check_invariants(g, hplan, 4, 65536, 4, SMS)
 
@@ -142,7 +172,7 @@ def test_random_specs_stay_inside_the_budget(seed):
         n = int(rng.integers(0, 1 << 24))
         sms = int(rng.choice([1, 78, 132]))
         hplan = _hplan(ranges, w, tile_h=int(rng.choice([1, 128, 512])))
-        g = hu.signed_geometry(hplan, w, n, itemsize, sms)
+        g = hu.fold_geometry(hplan, w, n, itemsize, sms)
         _check_invariants(g, hplan, w, n, itemsize, sms)
 
 
@@ -155,10 +185,13 @@ def _walk(g, n):
              for start in range(c * span, n, g.ctas * span)] for c in range(g.ctas)]
 
 
+@pytest.mark.parametrize("fold", ["compressor", "main"])
 @pytest.mark.parametrize("n", [1, 255, 257, 4097, 65537, 1_000_003, 226_492_417])
-def test_the_walk_covers_every_key_once(n):
-    hplan = _hplan((2172, 2172), 3)
-    g = hu.signed_geometry(hplan, 3, n, 4, SMS)
+def test_the_walk_covers_every_key_once(fold, n):
+    """The compressor's leaf plan (K8f) and the main path's (K3, K3f), at
+    odd n and n around a tile."""
+    hplan, w = (_hplan((2172, 2172), 3), 3) if fold == "compressor" else (_main_path_hplan(), 4)
+    g = hu.fold_geometry(hplan, w, n, 4, SMS)
     walks = _walk(g, n)
     ranges = sorted(rng for walk in walks for rng in walk)
     assert ranges[0][0] == 0 and ranges[-1][1] == n

@@ -1,0 +1,204 @@
+"""Time the hierarchy folds (K3, K3f, K8, K8f) of two source trees on one
+card, in turns, beside ``index_add_`` of the same values.
+
+    python3 tools/fold_ab.py --trees OLD NEW [--out FILE]
+
+Each tree is a checkout of this repository (its ``src/repro_torch``).  The
+trees run in the order OLD, NEW, NEW, OLD, each in a process of its own
+(both packages are named ``repro_torch``), which builds that tree's kernels
+and times, with L2 evicted before every call (CUDA events):
+
+- K3 and K3f: block 0 of ``chip_smoke.py``'s main stream (65,536 rows in
+  the generator's order, sorted by source) and, for K3, the block whose
+  top source holds the most rows, into zero ``4 x (4096 + 4096^2)`` tables;
+- K8: the turnstile stream's first block (shuffled, a seeded half of the
+  edges deleted) into a zero signed hierarchy of the same spec;
+- K8f: starcoder2-7b's embed leaf (49,152 x 4,608 keys, the compressor's
+  two-level plan, integer values in [-8, 8]).
+
+Only the wrappers' public signatures are used, so trees from before and
+after a kernel's redesign run the same script.  Prints one JSON object per
+run and, last, the card's name and power limit with every run's rows.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
+              n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)   # chip_smoke.STREAM
+BLOCK = 1 << 16
+EMBED = (49152, 4608)
+
+
+def one(tree: str) -> dict:
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hierarchy as hh
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.hashing import KeySchema, draw_hash_params_np
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import hier_update as hu
+    from repro_torch.kernels.hashes import all_indices, all_sign_bits
+    from repro_torch.streams import zipf_graph_stream
+    from repro_torch.training import grad_compression as gc
+
+    dev = torch.device("cuda")
+    _cuda.build(force=True)
+    l2 = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+
+    def cold_ms(fn, reps):
+        fn()
+        pairs = []
+        for _ in range(reps):
+            l2.add_(1)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def params(rng, spec):
+        return (torch.from_numpy(draw_hash_params_np(rng, (spec.width, spec.schema.total_chunks))
+                                 ).to(dev, torch.int64),
+                torch.from_numpy(draw_hash_params_np(rng, (spec.width, spec.n_groups))
+                                 ).to(dev, torch.int64))
+
+    def block(hspec, hplan, items, vals, q, r, signs=None):
+        """chunks, and the flat cells and values that index_add_ adds."""
+        ordered = hspec.level_items(hspec.n_levels - 1, torch.from_numpy(
+            np.ascontiguousarray(items).astype(np.int64)).to(dev))
+        chunks = hspec.levels[-1].schema.module_chunks(ordered)
+        w, cols = hspec.base.width, hplan.padded_cols
+        idx = all_indices(hplan.plan, chunks, q, r)
+        bits = all_sign_bits(hplan.plan, chunks, *signs) if signs else None
+        base = torch.arange(w, device=dev)[:, None] * cols
+        flat = torch.cat([(base + idx // d + o).reshape(-1)
+                          for o, d in zip(hplan.level_offsets, hplan.level_divs)])
+        vals_all = torch.cat([
+            (vals if bits is None else (1 - 2 * ((bits >> l) & 1)).to(vals.dtype) * vals)
+            .expand(w, vals.shape[0]).reshape(-1) for l in range(hplan.n_levels)])
+        return chunks, flat, vals_all
+
+    stream = zipf_graph_stream(**STREAM, seed=0)
+    rng = np.random.default_rng(0)
+    spec = sk.mod_sketch_spec(KeySchema((1 << 32, 1 << 32)), [(0,), (1,)], (4096, 4096), 4)
+    hspec = hh.HierarchySpec.from_spec(spec)
+    hplan = hu.make_hier_plan(hspec)
+    q, r = params(rng, spec)
+    s_q, s_r = params(rng, spec)
+    tops = [int(np.unique(stream.items[s : s + BLOCK, 0], return_counts=True)[1].max())
+            for s in range(0, stream.items.shape[0], BLOCK)]
+    hb = int(np.argmax(tops))
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "heaviest_block": hb,
+           "heaviest_top_source_rows": tops[hb], "block0_top_source_rows": tops[0]}
+
+    def row(name, fold, table, chunks, vals, flat, vals_all, reps=100):
+        scratch = table.clone()
+        out[name] = {"ms": cold_ms(lambda: fold(scratch, chunks, vals), reps),
+                     "index_add_ms": cold_ms(
+                         lambda: scratch.view(-1).index_add_(0, flat, vals_all), reps)}
+        out[name]["ratio"] = out[name]["ms"] / out[name]["index_add_ms"]
+
+    def k3(table, chunks, vals):
+        hu.hier_update(hplan, table, chunks, vals, q, r)
+
+    for name, b, dtype in (("K3", 0, torch.int32), ("K3_heaviest", hb, torch.int32),
+                           ("K3f", 0, torch.float32)):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        vals = torch.from_numpy(stream.freqs[sl]).to(dev, dtype)
+        chunks, flat, vals_all = block(hspec, hplan, stream.items[sl], vals, q, r)
+        table = torch.zeros((4, hplan.padded_cols), dtype=dtype, device=dev)
+        row(name, k3, table, chunks, vals, flat, vals_all)
+
+    # the turnstile stream's first block, as chip_smoke.turnstile_stream makes it
+    trng = np.random.default_rng((0, 12))
+    n = stream.items.shape[0]
+    gone = np.zeros(n, bool)
+    gone[trng.permutation(n)[: n // 2]] = True
+    items = np.concatenate([stream.items, stream.items[gone]])
+    freqs = np.concatenate([stream.freqs, -stream.freqs[gone]])
+    order = trng.permutation(items.shape[0])[:BLOCK]
+    vals = torch.from_numpy(freqs[order]).to(dev, torch.int32)
+    chunks, flat, vals_all = block(hspec, hplan, items[order], vals, q, r, (s_q, s_r))
+    table = torch.zeros((4, hplan.padded_cols), dtype=torch.int32, device=dev)
+    row("K8", lambda t, c, v: hu.hier_update_signed(hplan, t, c, v, q, r, s_q, s_r),
+        table, chunks, vals, flat, vals_all)
+    del chunks, flat, vals_all
+
+    plan = gc._leaf_plan(gc.CompressionConfig(enabled=True), EMBED)
+    lspec = plan.hspec.levels[-1]
+    lplan = hu.make_hier_plan(plan.hspec, tile_h=1)
+    lq, lr = params(rng, lspec)
+    lsq, lsr = params(rng, lspec)
+    rows_, cols_ = EMBED
+    coords = torch.stack([torch.arange(rows_, device=dev).repeat_interleave(cols_),
+                          torch.arange(cols_, device=dev).repeat(rows_)], dim=-1)
+    lchunks = lspec.schema.module_chunks(plan.hspec.level_items(plan.hspec.n_levels - 1,
+                                                                coords))
+    del coords
+    gen = torch.Generator(device=dev).manual_seed(14)
+    v = torch.randint(-8, 9, (lchunks.shape[0],), generator=gen, device=dev).to(torch.float32)
+    w = lspec.width
+    idx = all_indices(lplan.plan, lchunks, lq, lr)
+    bits = all_sign_bits(lplan.plan, lchunks, lsq, lsr)
+    base = torch.arange(w, device=dev)[:, None] * lplan.padded_cols
+    flat = torch.cat([(base + idx // d + o).reshape(-1)
+                      for o, d in zip(lplan.level_offsets, lplan.level_divs)])
+    del idx
+    signed = torch.cat([((1 - 2 * ((bits >> l) & 1)).to(torch.float32) * v).reshape(-1)
+                        for l in range(lplan.n_levels)])
+    del bits
+    table = torch.zeros((w, lplan.padded_cols), device=dev)
+    row("K8f_embed",
+        lambda t, c, vv: hu.hier_update_signed(lplan, t, c, vv, lq, lr, lsq, lsr),
+        table, lchunks, v, flat, signed, reps=10)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    if args.one:
+        print(json.dumps(one(args.one)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("fold_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    old, new = args.trees
+    runs = []
+    for tree in (old, new, new, old):
+        done = subprocess.run([sys.executable, __file__, "--one", tree],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            print(done.stdout + done.stderr, file=sys.stderr)
+            return done.returncode
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    result = {"card": card, "order": [old, new, new, old], "runs": runs}
+    if args.out:
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(card)
+    for name in ("K3", "K3_heaviest", "K3f", "K8", "K8f_embed"):
+        print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name]['index_add_ms']:.5f}"
+                             for run in runs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
