@@ -68,8 +68,9 @@ Phases, any failure of which exits non-zero:
    torch.profiler; set both beside the least time the card could take,
    and K5/K5i also beside their chain bound (B dependent steps of one
    table load and a warp minimum, each step measured by a probe kernel),
-   K8f beside two probes of what bounds it (a finest level that fits L2,
-   all-zero values);
+   K8f, K6 and K6f beside probes of what bounds them (a finest level or a
+   flat table that fits L2, all-zero values; for K6/K6f also the adds a
+   warp combine would save);
 5. drive the main path, the turnstile path, the conservative path and one
    train step once more under torch.profiler for the device's busy and
    idle share.
@@ -110,7 +111,7 @@ from repro_torch.kernels import hier_update as hu  # noqa: E402
 from repro_torch.kernels import sketch_query as sq  # noqa: E402
 from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
-from repro_torch.kernels.hashes import all_indices, all_sign_bits  # noqa: E402
+from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving.sketch_engine import (  # noqa: E402
@@ -156,6 +157,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 # values, whose float32 sum in any order is off by far less)
 REAL_GRAD_TOL = 2.0 ** -10
 PLAIN_CHUNK = 1 << 25
+# K6/K6f's bound probe: the flat table's ranges cut so that it fits the
+# card's 50 MB L2 (4 x 2^20 int32 or float32 cells, 16 MB)
+L2_RANGES = (1024, 1024)
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -1193,6 +1197,40 @@ def k8_block(hspec, hplan, table, blk_items, f, q, r, s_q, s_r):
     return chunks, flat, vals, int(torch.unique(flat[vals != 0]).numel())
 
 
+def flat_signed_probes(kr, spec, plan, table, chunks, f, q, r, s_q, s_r) -> dict:
+    """What bounds K6/K6f on a block: the same keys, values and params into
+    a flat table that fits L2 (the same schema and partition, ranges cut
+    to L2_RANGES), timed with L2 evicted first and with the table read into
+    L2 first; all-zero values, which skip the hash and the atomics; and the
+    adds a warp combine would save, counted: the live (row, key) adds less
+    the distinct (row, warp, cell) they hit."""
+    dev, (w, h_pad) = table.device, table.shape
+    small = sk.mod_sketch_spec(spec.schema, spec.partition, L2_RANGES, w)
+    small_plan = make_plan(small)
+    small_table = torch.zeros((w, su.padded_table_size(small.table_size, 512)),
+                              dtype=table.dtype, device=dev)
+    zeros = torch.zeros_like(f)
+    idx = all_indices(plan, chunks, q, r)
+    n_warps = -(-f.shape[0] // 32)
+    warp = torch.arange(f.shape[0], device=dev) // 32
+    cells = (torch.arange(w, device=dev)[:, None] * n_warps + warp) * h_pad + idx
+    live = f != 0
+    out = {
+        "l2_table_cells": small_table.numel(),
+        "l2_table_cold_ms": cold_ms(lambda: su.sketch_update_signed(
+            small_plan, small_table, chunks, f, q, r, s_q, s_r), 100, kr.evict),
+        "l2_table_resident_ms": cold_ms(lambda: su.sketch_update_signed(
+            small_plan, small_table, chunks, f, q, r, s_q, s_r), 100,
+            lambda: (kr.evict(), small_table.sum())),
+        "zero_values_ms": cold_ms(lambda: su.sketch_update_signed(
+            plan, table, chunks, zeros, q, r, s_q, s_r), 100, kr.evict),
+        "live_adds": w * int(live.sum()),
+        "warp_combinable_adds": w * int(live.sum())
+        - int(torch.unique(cells[:, live]).numel())}
+    del small_table, zeros, idx, cells
+    return out
+
+
 def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
     dev = torch.device(DEVICE)
     items, freqs, queries = turnstile
@@ -1282,19 +1320,24 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
     vals = signed_values(bits, len(plan.ranges) - 1, f).reshape(-1)
     touched = int(torch.unique(flat[vals != 0]).numel())
     scratch = flat_table.clone()
-    kr.add("sketch_update_signed", "sk_update_signed_kernel",
-           err=max_abs_err(
-               su.sketch_update_signed(plan, flat_table.clone(), fchunks, f, q, r, s_q, s_r),
-               su.sketch_update_signed_ref(plan, flat_table.clone(), fchunks, f, q, r,
-                                           s_q, s_r)),
-           call=lambda: su.sketch_update_signed(plan, scratch, fchunks, f, q, r, s_q, s_r),
-           plain=lambda: su.sketch_update_signed_ref(plan, scratch, fchunks, f, q, r,
-                                                     s_q, s_r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
-           n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + param_bytes(s_q, s_r) + 8 * touched,
-           n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
-           shape=f"B={BLOCK} w={w} h_pad={h_pad}, {int((f < 0).sum())} deletions")
+    row = kr.measure(
+        "sketch_update_signed", "sk_update_signed_kernel<int",
+        err=max_abs_err(
+            su.sketch_update_signed(plan, flat_table.clone(), fchunks, f, q, r, s_q, s_r),
+            su.sketch_update_signed_ref(plan, flat_table.clone(), fchunks, f, q, r,
+                                        s_q, s_r)),
+        call=lambda: su.sketch_update_signed(plan, scratch, fchunks, f, q, r, s_q, s_r),
+        plain=lambda: su.sketch_update_signed_ref(plan, scratch, fchunks, f, q, r,
+                                                  s_q, s_r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+        n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + param_bytes(s_q, s_r) + 8 * touched,
+        n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
+        shape=f"B={BLOCK} w={w} h_pad={h_pad}, {int((f < 0).sum())} deletions")
+    row["bound_probes"] = flat_signed_probes(kr, ks.spec, plan, scratch, fchunks, f, q, r,
+                                             s_q, s_r)
+    log(f"K6 bound probes {row['bound_probes']}")
+    kr.rows.append(row)
     del scratch
 
     qchunks = ks.spec.schema.module_chunks(as_index_tensor(queries, dev))
@@ -1485,19 +1528,24 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
             * tf).reshape(-1)
     touched = int(torch.unique(flat[vals != 0]).numel())
     scratch = stable.clone()
-    kr.add("sketch_update_signed_f32", "sk_update_signed_kernel<float>",
-           err=max_abs_err(
-               su.sketch_update_signed(plan, stable.clone(), tchunks, tf, q, r, s_q, s_r),
-               su.sketch_update_signed_ref(plan, stable.clone(), tchunks, tf, q, r,
-                                           s_q, s_r)),
-           call=lambda: su.sketch_update_signed(plan, scratch, tchunks, tf, q, r, s_q, s_r),
-           plain=lambda: su.sketch_update_signed_ref(plan, scratch, tchunks, tf, q, r,
-                                                     s_q, s_r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, vals),
-           n_bytes=key_bytes(f_signed.spec.schema, BLOCK) + nbytes(tf) + param_bytes(q, r)
-           + param_bytes(s_q, s_r) + 8 * touched,
-           n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
-           shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32, {int((tf < 0).sum())} deletions")
+    row = kr.measure(
+        "sketch_update_signed_f32", "sk_update_signed_kernel<float",
+        err=max_abs_err(
+            su.sketch_update_signed(plan, stable.clone(), tchunks, tf, q, r, s_q, s_r),
+            su.sketch_update_signed_ref(plan, stable.clone(), tchunks, tf, q, r,
+                                        s_q, s_r)),
+        call=lambda: su.sketch_update_signed(plan, scratch, tchunks, tf, q, r, s_q, s_r),
+        plain=lambda: su.sketch_update_signed_ref(plan, scratch, tchunks, tf, q, r,
+                                                  s_q, s_r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, vals),
+        n_bytes=key_bytes(f_signed.spec.schema, BLOCK) + nbytes(tf) + param_bytes(q, r)
+        + param_bytes(s_q, s_r) + 8 * touched,
+        n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
+        shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32, {int((tf < 0).sum())} deletions")
+    row["bound_probes"] = flat_signed_probes(kr, f_signed.spec, plan, scratch, tchunks, tf, q, r,
+                                             s_q, s_r)
+    log(f"K6f bound probes {row['bound_probes']}")
+    kr.rows.append(row)
     del scratch, flat, vals
 
     # K8f: every compressed leaf's shape of the training path, integer

@@ -269,11 +269,12 @@ def require_on(device: torch.device, kernel: str, **tensors) -> None:
 
 def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
                         chunks: torch.Tensor, q: torch.Tensor,
-                        r: torch.Tensor, dtypes=(torch.int32,)) -> None:
+                        r: torch.Tensor, dtypes=(torch.int32,), signs=()) -> None:
     """Checks shared by the kernels that hash in place (K1-K3, K5-K8): a
     contiguous [w, cols] table of one of ``dtypes``, int64 chunks [B, C]
     and params q [w, C] / r [w, m] on the table's device, matching
-    ``plan``."""
+    ``plan``.  The signed kernels (K6-K8) pass their sign params as
+    ``signs`` (sq, sr), held to q's and r's rules."""
     require_table_dtype(table, kernel, dtypes)
     require_on(table.device, kernel, table=table, chunks=chunks, q=q, r=r)
     require(chunks.dtype == q.dtype == r.dtype == torch.int64,
@@ -286,3 +287,11 @@ def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
             f"{kernel}: chunks {tuple(chunks.shape)}, q {tuple(q.shape)}, "
             f"r {tuple(r.shape)} and table {tuple(table.shape)} do not "
             "match the plan")
+    if signs:
+        sq, sr = signs
+        require_on(table.device, kernel, sq=sq, sr=sr)
+        require(sq.dtype == sr.dtype == torch.int64 and sq.shape == q.shape
+                and sr.shape == r.shape,
+                f"{kernel}: sq {tuple(sq.shape)} {sq.dtype} and sr {tuple(sr.shape)} "
+                f"{sr.dtype} must be int64 of q's and r's shapes "
+                f"{tuple(q.shape)}, {tuple(r.shape)}")

@@ -35,12 +35,13 @@
 // The design: one thread per key runs all w rows, so a key's chunks and
 // value leave DRAM once -- held in registers when the key has at most
 // kRegChunks chunks -- and each thread has w x L independent atomics in
-// flight.  The hash is K0 (signed: K0 and K0s fused into one pass) with 32 x
-// 32 -> 64-bit products, and every division by a range or a level divisor
-// is a multiply and a shift (DivisorC).  A CTA walks spans of `span_tiles`
-// consecutive tiles of kFoldThreads keys, grid-stride (span s goes to CTA s
-// mod gridDim.x), so one CTA meets long runs of keys that share a coarse
-// cell, and a sparse leaf's nonzero rows spread over every CTA.  Each level
+// flight.  The hash is hashes.cuh's fused index_and_sign_bits (signed: K0
+// and K0s in one pass) with 32 x 32 -> 64-bit products, and every division
+// by a range or a level divisor is a multiply and a shift (DivisorC).  A
+// CTA walks spans of `span_tiles` consecutive tiles of kFoldThreads keys,
+// grid-stride (span s goes to CTA s mod gridDim.x), so one CTA meets long
+// runs of keys that share a coarse cell, and a sparse leaf's nonzero rows
+// spread over every CTA.  Each level
 // whose bit is set in `shared_mask` is folded into a private copy in shared
 // memory (w x its padded columns): the lanes of a warp that hit one cell
 // are first combined (__match_any_sync, then __reduce_add_sync on int32 or
@@ -70,108 +71,12 @@ constexpr int kHierCtasPerSm = 4;           // hier_update.CTAS_PER_SM
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoCell = 0xffffffffu;   // a dead lane's cell: above any real one
 
-// Division by an invariant d of a numerator below 2^31 as a multiply and a
-// shift (Granlund and Montgomery, 1994, Thm 4.2): with s = 31 + ceil(log2 d)
-// and m = ceil(2^s / d), n / d = (n * m) >> s for every n < 2^31, and
-// m < 2^32.  The launcher makes one per hash range and per level divisor.
-struct DivisorC {
-  uint32_t m, s;
-};
-
+// The finest plan's group ranges (the hash's, hashes.cuh) and the levels'
+// divisors.
 struct HierDivsC {
-  DivisorC range[SK_MAX_GROUPS];  // the finest plan's group ranges
-  DivisorC level[SK_MAX_LEVELS];  // the levels' divisors
+  HashDivsC hash;
+  DivisorC level[SK_MAX_LEVELS];
 };
-
-DivisorC make_divisor(uint32_t d) {
-  uint32_t l = 0;
-  while ((1ull << l) < d) ++l;
-  const uint64_t s = 31 + l;
-  return {(uint32_t)(((1ull << s) + d - 1) / d), (uint32_t)s};
-}
-
-__device__ __forceinline__ uint32_t div_by(const DivisorC& v, uint32_t n) {
-  return (uint32_t)(((uint64_t)n * v.m) >> v.s);
-}
-
-// x mod P31 in [0, P31) for x < 2^53, as sk_mod_p31, the second fold in 32
-// bits: (x >> 31) + (x & P31) is below 2^32.
-__device__ __forceinline__ uint32_t mod_p31_53(uint64_t x) {
-  const uint32_t P = 0x7FFFFFFFu;
-  uint32_t y = (uint32_t)(x >> 31) + ((uint32_t)x & P);
-  y = (y >> 31) + (y & P);
-  return y >= P ? y - P : y;
-}
-
-// The low 32 bits of an int64 entry: every hash param is below P31 and every
-// chunk below 2^16.
-__device__ __forceinline__ uint32_t lo32(const int64_t* __restrict__ p, int i) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p + i));
-}
-
-// Keys of at most kRegChunks chunks, in groups of one chunk or more, hold
-// them in registers (kChunks = kRegChunks below); others read them from the
-// chunk array for each row (kChunks = 0).
-constexpr int kRegChunks = 8;
-
-// composite_index (K0) of one row, and when kSigned composite_sign_bits
-// (K0s) beside it, bit for bit, in one pass over the key's chunks: each
-// product is one 32 x 32 -> 64-bit multiply, the sums stay below 2^53, and
-// `% range` is div_by's multiply and shift.  Unsigned, sq and sr are never
-// read and `bits` stays 0.  kChunks > 0: chunk t (group-major order) is
-// xr[t], and every group has a chunk, so group j ends at chunk
-// group_start[j+1] - 1.
-template <int kChunks, bool kSigned>
-__device__ __forceinline__ void index_and_sign_bits(
-    const IndexPlanC& plan, const HierDivsC& divs, const uint32_t* xr,
-    const int64_t* __restrict__ x, const int64_t* __restrict__ q,
-    const int64_t* __restrict__ r, const int64_t* __restrict__ sq,
-    const int64_t* __restrict__ sr, uint32_t& idx, uint32_t& bits) {
-  uint32_t cum = 0;
-  idx = 0;
-  bits = 0;
-  auto finish = [&](int j, uint64_t acc, uint64_t sacc) {
-    const uint32_t h = mod_p31_53(acc);
-    idx += (h - div_by(divs.range[j], h) * plan.ranges[j]) * plan.strides[j];
-    if constexpr (kSigned) {
-      cum ^= mod_p31_53(sacc) & 1u;
-      bits |= cum << j;
-    }
-  };
-  if (kChunks > 0) {
-    int j = 0, end = plan.group_start[1];
-    uint64_t acc = lo32(r, 0), sacc = 0;
-    if constexpr (kSigned) sacc = lo32(sr, 0);
-#pragma unroll
-    for (int t = 0; t < (kChunks > 0 ? kChunks : 1); ++t) {
-      if (t < plan.group_start[plan.n_groups]) {
-        const int c = plan.cols[t];
-        acc += (uint64_t)lo32(q, c) * xr[t];
-        if constexpr (kSigned) sacc += (uint64_t)lo32(sq, c) * xr[t];
-        if (t + 1 == end) {
-          finish(j, acc, sacc);
-          if (++j < plan.n_groups) {
-            acc = lo32(r, j);
-            if constexpr (kSigned) sacc = lo32(sr, j);
-            end = plan.group_start[j + 1];
-          }
-        }
-      }
-    }
-  } else {
-    for (int j = 0; j < plan.n_groups; ++j) {
-      uint64_t acc = lo32(r, j), sacc = 0;
-      if constexpr (kSigned) sacc = lo32(sr, j);
-      for (int t = plan.group_start[j]; t < plan.group_start[j + 1]; ++t) {
-        const int c = plan.cols[t];
-        const uint32_t xc = lo32(x, c);
-        acc += (uint64_t)lo32(q, c) * xc;
-        if constexpr (kSigned) sacc += (uint64_t)lo32(sq, c) * xc;
-      }
-      finish(j, acc, sacc);
-    }
-  }
-}
 
 // The sum of v over the lanes in `peers` (the calling lane among them),
 // complete in the lowest of them.  Every lane of the warp calls it.
@@ -239,10 +144,7 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
       if (!__any_sync(kFull, live)) continue;   // warp-uniform: a zero stretch
       const int64_t* x = chunks + b * plan.total_chunks;
       uint32_t xr[kChunks > 0 ? kChunks : 1];
-#pragma unroll
-      for (int t = 0; t < kChunks; ++t) {
-        xr[t] = live && t < plan.group_start[plan.n_groups] ? lo32(x, plan.cols[t]) : 0u;
-      }
+      load_chunks<kChunks>(plan, x, live, xr);
       for (int k = 0; k < w; ++k) {
         uint32_t idx = 0, bits = 0;
         if (live) {
@@ -252,7 +154,8 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
             sqk = sq + k * plan.total_chunks;
             srk = sr + k * plan.n_groups;
           }
-          index_and_sign_bits<kChunks, kSigned>(plan, divs, xr, x, q + k * plan.total_chunks,
+          index_and_sign_bits<kChunks, kSigned>(plan, divs.hash, xr, x,
+                                                q + k * plan.total_chunks,
                                                 r + k * plan.n_groups, sqk, srk, idx, bits);
         }
         T* row = table + k * cols;
@@ -385,13 +288,9 @@ int launch_hier_fold(const IndexPlanC* plan, const LevelsC* levels, T* table, in
   if (want != smem || ctas <= 0 || span_tiles <= 0 || (shared_mask >> levels->n_levels) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  HierDivsC divs{};
-  bool in_registers = plan->total_chunks <= kRegChunks;
-  for (int j = 0; j < plan->n_groups; ++j) {
-    divs.range[j] = make_divisor(plan->ranges[j]);
-    in_registers &= plan->group_start[j + 1] > plan->group_start[j];
-  }
+  HierDivsC divs{make_hash_divs(*plan), {}};
   for (int l = 0; l < levels->n_levels; ++l) divs.level[l] = make_divisor(levels->divs[l]);
+  const bool in_registers = chunks_in_registers(*plan);
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (kSigned) {
     auto kernel = in_registers ? sk_hier_update_signed_kernel<T, kRegChunks>

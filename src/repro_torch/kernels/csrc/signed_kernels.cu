@@ -14,7 +14,8 @@
 // kernels multiply the +-1 sign into 12-bit frequency limbs before a one-hot
 // f32 matmul on the MXU, and gather through 16-bit table limbs.  None of
 // that carries over.  The sign is one bit of the packed parities
-// (composite_sign_bits, K0s), applied to an int32 value in two's complement;
+// (composite_sign_bits, K0s, or in the folds the fused index_and_sign_bits),
+// applied to an int32 value in two's complement;
 // an int32 atomicAdd is exact and two's-complement addition associative, so
 // any order of atomics gives the jnp scatter's table, wraparound included.
 // The median over rows stays with the caller, as in the reference: K7 and
@@ -44,34 +45,71 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// K6 replaces src/repro/kernels/sketch_update.py `sketch_update_signed_pallas`
-// (`_update_kernel_signed_int`; as K6f, `_update_kernel_signed_f32`).  table[k, idx_k(b)] += s_k(b) * f_b, one
-// thread per (row k, key b): gridDim.y = w rows, x over keys.  The flat sign
-// is the top group's bit.
-// Bound: random 4-byte read-modify-writes into a table larger than L2, as K1;
-// the sign is a second CW pass, a few dozen more integer operations per
-// (row, key).  The design hashes cell and sign once and adds with one atomic;
-// zero-frequency rows skip it.
-template <typename T>
-__global__ void sk_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
-                                        T* __restrict__ table, int64_t h_pad,
-                                        const int64_t* __restrict__ chunks,
-                                        const T* __restrict__ freqs, int64_t n,
-                                        const int64_t* __restrict__ q,
-                                        const int64_t* __restrict__ r,
-                                        const int64_t* __restrict__ sq,
-                                        const int64_t* __restrict__ sr) {
+// K6 / K6f: the signed flat fold.  K6 replaces src/repro/kernels/
+// sketch_update.py `sketch_update_signed_pallas` (`_update_kernel_signed_int`;
+// as K6f, `_update_kernel_signed_f32`): table[k, idx_k(b)] += s_k(b) * f_b,
+// the flat sign s_k being bit n_groups - 1 of the packed sign bits.
+//
+// The first design ran one thread per (row, key), gridDim.y = w: a key's
+// chunks, value and params were read once per row, w times, as 64-bit
+// values; the cell and the sign were two Carter-Wegman passes
+// (composite_index, composite_sign_bits) of 64 x 64-bit products, each group
+// ending in a 32-bit division by a runtime range.  On the turnstile block
+// (65,536 keys, w = 4, a [4, 4096^2] int32 table of 268 MB) it took 0.02335
+// ms with L2 evicted, 1.010x `index_add_` of the same signed values
+// (chip_smoke.py on an H100 80GB HBM3 at 700 W).  That work, which the
+// hierarchy folds shed, turned out hidden here: the atomics bounded the
+// first design as they bound this one (below).
+//
+// The design: K8's, without the levels (hier_fold.cuh).  One thread per key
+// runs all w rows: the key's value is read once and its chunks once (their
+// low halves, in registers when the key has at most kRegChunks of them,
+// else from the chunk array each row), the cell and the sign come from one
+// pass of hashes.cuh's fused index_and_sign_bits, and each thread has w
+// independent global atomics in flight.  A zero value skips the hash and the
+// adds; a warp whose keys are all zero leaves at once.
+//
+// The grid is one CTA per kThreads keys, with no span walk.  hier_fold's
+// walk deals spans of consecutive keys to a CTA so that it meets runs of keys
+// that share a coarse cell; the flat cell is the whole key's hash, so keys
+// meet only by collision and consecutive keys share nothing.  At 65,536 keys
+// that is 256 CTAs of 256 threads (39 registers), which the 132 SMs hold at
+// once, so a walk would only serialise keys.  For the same reason there is
+// no warp combine (__match_any_sync on the cell): on the turnstile block it
+// would save 15 of the 262,144 adds (chip_smoke.py, `bound_probes`
+// `warp_combinable_adds`), and a match costs every lane every row.
+//
+// What bounds it: the random read-modify-writes, which `index_add_` pays
+// too.  On the turnstile block, H100 80GB HBM3 at 700 W (chip_smoke.py's
+// K6 row and its probes): 0.02296 ms with L2 evicted, 0.98x `index_add_`;
+// the same keys into a 16 MB table, 0.01674 ms with L2 evicted and 0.01340
+// with the table read into L2 first; all-zero values, which skip the hash
+// and the atomics, 0.00569.  Halving the integer work and reading each key
+// once left the device time where the first design had it (0.01971 ms
+// against 0.01953): the hash is hidden behind the atomics, and 58% of the
+// time stays when the table sits in L2.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+    sk_update_signed_kernel(const __grid_constant__ IndexPlanC plan,
+                            const __grid_constant__ HashDivsC divs, T* __restrict__ table,
+                            int64_t h_pad, int32_t w, const int64_t* __restrict__ chunks,
+                            const T* __restrict__ freqs, int64_t n,
+                            const int64_t* __restrict__ q, const int64_t* __restrict__ r,
+                            const int64_t* __restrict__ sq, const int64_t* __restrict__ sr) {
   const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = blockIdx.y;
-  if (b >= n) return;
-  const T f = freqs[b];
+  const T f = b < n ? freqs[b] : T(0);
   if (f == T(0)) return;
   const int64_t* x = chunks + b * plan.total_chunks;
-  const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
-                                       r + k * plan.n_groups);
-  const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
-                                            sr + k * plan.n_groups);
-  atomicAdd(table + k * h_pad + idx, sk_apply_sign(f, (bits >> (plan.n_groups - 1)) & 1u));
+  uint32_t xr[kChunks > 0 ? kChunks : 1];
+  load_chunks<kChunks>(plan, x, true, xr);
+  const int top = plan.n_groups - 1;
+  for (int k = 0; k < w; ++k) {
+    uint32_t idx, bits;
+    index_and_sign_bits<kChunks, true>(plan, divs, xr, x, q + k * plan.total_chunks,
+                                       r + k * plan.n_groups, sq + k * plan.total_chunks,
+                                       sr + k * plan.n_groups, idx, bits);
+    atomicAdd(table + k * h_pad + idx, sk_apply_sign(f, (bits >> top) & 1u));
+  }
 }
 
 // K7 replaces src/repro/kernels/sketch_query.py `sketch_query_signed_pallas`
@@ -134,9 +172,10 @@ int launch_update_signed(const IndexPlanC* plan, T* table, int64_t h_pad, int32_
                          const int64_t* r, const int64_t* sq, const int64_t* sr,
                          void* stream) {
   if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_update_signed_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      *plan, table, h_pad, chunks, freqs, n, q, r, sq, sr);
+  auto kernel = chunks_in_registers(*plan) ? sk_update_signed_kernel<T, kRegChunks>
+                                           : sk_update_signed_kernel<T, 0>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      *plan, make_hash_divs(*plan), table, h_pad, w, chunks, freqs, n, q, r, sq, sr);
   return (int)cudaGetLastError();
 }
 

@@ -221,9 +221,8 @@ def _launch(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
     table with the launch :func:`fold_geometry` picks; raise if it fails."""
     kind = "hier_update_signed" if signs else "hier_update"
     name, symbol, vdtype = _cuda.fold_variant(table, kind, "sk_" + kind)
-    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
-    if signs:
-        _cuda.require_hash_inputs(name, hplan.plan, table, chunks, *signs, _cuda.FOLD_DTYPES)
+    _cuda.require_hash_inputs(name, hplan.plan, table, chunks, q, r, _cuda.FOLD_DTYPES,
+                              signs)
     freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     b = chunks.shape[0]

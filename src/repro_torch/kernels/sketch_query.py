@@ -85,8 +85,7 @@ def sketch_query_signed(plan: IndexPlan, table: torch.Tensor,
     if not table.is_cuda:
         return sketch_query_signed_ref(plan, table, chunks, q, r, sq, sr)
     name = "sketch_query_signed"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
-    _cuda.require_hash_inputs(name, plan, table, chunks, sq, sr)
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, signs=(sq, sr))
     w, h_pad = table.shape
     _cuda.require(plan.table_size <= h_pad,
                   f"{name}: table width {h_pad} below the plan's {plan.table_size}")

@@ -11,10 +11,12 @@ float32 values with a float ``atomicAdd``.
 
 K6 is the signed (Count-Sketch) fold of ``sketch_update_signed_pallas``:
 ``cell += s_k(x) * f`` with f of either sign.  Its kernel
-(``sk_update_signed_kernel`` in ``csrc/signed_kernels.cu``) hashes the cell
-and the packed sign bits once per (row, key) and adds the signed value with
-one int32 ``atomicAdd``; :func:`sketch_update_signed_ref` is its plain
-version.  On a float32 table (K6f, ``_update_kernel_signed_f32``) the sign
+(``sk_update_signed_kernel`` in ``csrc/signed_kernels.cu``) runs one thread
+per key over all w rows: it reads the key once, hashes each row's cell and
+packed sign bits in one fused pass (``index_and_sign_bits`` in
+``csrc/hashes.cuh``, the hierarchy folds' hash) and adds the signed value
+with one int32 ``atomicAdd`` a row; :func:`sketch_update_signed_ref` is its
+plain version.  On a float32 table (K6f, ``_update_kernel_signed_f32``) the sign
 negates the float32 value exactly and a float ``atomicAdd`` adds it.
 
 Float atomics add in any order, so a float32 table equals its plain
@@ -112,8 +114,7 @@ def sketch_update_signed(plan: IndexPlan, table: torch.Tensor,
         return sketch_update_signed_ref(plan, table, chunks, freqs, q, r, sq, sr)
     name, symbol, vdtype = _cuda.fold_variant(table, "sketch_update_signed",
                                               "sk_sketch_update_signed")
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, _cuda.FOLD_DTYPES)
-    _cuda.require_hash_inputs(name, plan, table, chunks, sq, sr, _cuda.FOLD_DTYPES)
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, _cuda.FOLD_DTYPES, (sq, sr))
     freqs = freqs.to(vdtype)
     _cuda.require_on(table.device, name, freqs=freqs)
     w, h_pad = table.shape

@@ -320,6 +320,36 @@ def test_plain_k6_k7_match_core(w):
     assert dict(_cuda.LAUNCHES) == before           # CPU tensors: no launch
 
 
+@pytest.mark.parametrize("bad,match", [
+    (None, None), ("sq_int32", "must be int64"), ("sr_int32", "must be int64"),
+    ("sq_shape", "shapes"), ("sr_shape", "shapes"), ("sq_strided", "sq must be contiguous"),
+    ("sr_strided", "sr must be contiguous")])
+def test_signed_kernels_check_sign_params_beside_q_and_r(bad, match):
+    """The signed kernels' wrappers (K6-K8) check the sign params once,
+    beside q and r, and hold them to the same rules: int64, q's and r's
+    shapes, contiguous, on the table's device."""
+    rspec, pspec = _specs(3)
+    _, pp = _params(rspec, 140)
+    plan = make_plan(pspec)
+    items, _ = _block(40, 141)
+    chunks = pspec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)))
+    table = torch.zeros((3, psu.padded_table_size(pspec.table_size, 128)), dtype=torch.int32)
+    q, r = pp.base
+    signs = {"sq": pp.sign_q, "sr": pp.sign_r}
+    if bad is not None:
+        name, what = bad.split("_")
+        t = signs[name]
+        signs[name] = {"int32": t.to(torch.int32), "shape": t[:, :-1].contiguous(),
+                       "strided": t.repeat(1, 2)[:, ::2]}[what]
+    check = lambda: _cuda.require_hash_inputs(  # noqa: E731
+        "k6", plan, table, chunks, q, r, _cuda.FOLD_DTYPES, (signs["sq"], signs["sr"]))
+    if bad is None:
+        check()
+    else:
+        with pytest.raises(ValueError, match=match):
+            check()
+
+
 @pytest.mark.parametrize("w", WIDTHS)
 def test_plain_k8_matches_reference_oracle(w):
     rhspec, phspec = _hspecs(w)

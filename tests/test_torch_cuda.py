@@ -354,13 +354,43 @@ def _chunks(spec, items, device):
     return spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(device))
 
 
-def test_k6_k7_signed_flat_sketch_match_plain(cuda):
-    spec = _hspec().levels[-1]
+def _many_chunks_hspec(w=3):
+    """Keys of 10 chunks, more than the folds hold in registers."""
+    schema = KeySchema(domains=(1 << 32,) * 5)
+    return hh.HierarchySpec.from_spec(
+        sk.mod_sketch_spec(schema, [(0, 1), (2,), (3, 4)], (40, 9, 11), w))
+
+
+# The signed flat fold's (K6, K6f) blocks: "mixed" is _signed_block's (a
+# third of the values negative, duplicate keys, a zero-frequency tail), at
+# one key, around one CTA's 256 keys and just past 256 CTAs; then an
+# all-zero block, every value negative, and keys of 10 chunks, which hash
+# from the chunk array.
+K6_CASES = [("mixed", 3000), ("mixed", 1), ("mixed", 255), ("mixed", 257),
+            ("mixed", 65537), ("zeros", 3000), ("negative", 3000), ("many_chunks", 3001)]
+
+
+def _k6_block(case, n, seed, w=3):
+    """The hierarchy spec, items and int32 values of a K6_CASES case."""
+    hspec = _many_chunks_hspec(w) if case == "many_chunks" else _hspec(w)
+    items, freqs = _signed_block(hspec, n, seed)
+    if case == "zeros":
+        freqs[:] = 0
+    elif case == "negative":
+        freqs = -np.abs(freqs) - 1
+    elif n < 8:                      # the zero tail would take every key
+        freqs[:] = -5
+    return hspec, items, freqs
+
+
+@pytest.mark.parametrize("case,n", K6_CASES)
+def test_k6_k7_signed_flat_sketch_match_plain(cuda, case, n):
+    hspec, items, freqs = _k6_block(case, n, 21)
+    spec = hspec.levels[-1]
     plan = make_plan(spec)
     p = _signed_params(spec, 20, cuda)
     (q, r), s_q, s_r = p
     h_pad = su.padded_table_size(spec.table_size, 128)
-    items, freqs = _signed_block(_hspec(), 3000, 21)
     chunks = _chunks(spec, items, cuda)
     f = torch.from_numpy(freqs).to(cuda)
     base = _random_table((spec.width, h_pad), 22, cuda)
@@ -370,11 +400,12 @@ def test_k6_k7_signed_flat_sketch_match_plain(cuda):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["sketch_update_signed"] == n0 + 1
     assert torch.equal(got, want)
+    assert torch.equal(got, base) == (case == "zeros")
 
     n0 = _cuda.LAUNCHES["sketch_query_signed"]
     rows = sq.sketch_query_signed(plan, got, chunks, q, r, s_q, s_r)
     assert _cuda.LAUNCHES["sketch_query_signed"] == n0 + 1
-    assert rows.dtype == torch.int32 and rows.shape == (spec.width, 3000)
+    assert rows.dtype == torch.int32 and rows.shape == (spec.width, n)
     assert torch.equal(rows, sq.sketch_query_signed_ref(plan, got, chunks, q, r, s_q, s_r))
 
 
@@ -394,32 +425,44 @@ def test_k8_signed_hierarchy_update_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
-def test_k6_k8_int32_wraparound_matches_plain(cuda, monkeypatch):
-    hspec = _hspec(w=2)
+@pytest.mark.parametrize("case,n", [("mixed", 1500)] + K6_CASES[1:])
+def test_k6_k8_int32_wraparound_matches_plain(cuda, monkeypatch, case, n):
+    """Values of magnitude 2^24 - 1 (alternating signs, "mixed"; all
+    negative; all zero) into tables within 2^24 of either int32 limit: both
+    folds wrap as the plain ones do, on both routes of K8."""
+    hspec = _many_chunks_hspec(w=2) if case == "many_chunks" else _hspec(w=2)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 27, cuda)
-    items, _ = _block(hspec, 1500, 28)
-    freqs = np.full(1500, (1 << 24) - 1, np.int32)
-    freqs[::2] *= -1
+    items, _ = _block(hspec, n, 28)
+    freqs = np.full(n, (1 << 24) - 1, np.int32)
+    if case == "negative":
+        freqs *= -1
+    else:
+        freqs[::2] *= -1
+    freqs *= case != "zeros"
     f = torch.from_numpy(freqs).to(cuda)
-    chunks = _chunks(hspec.levels[-1], hspec.level_items(2, items), cuda)
-    assert hu.fold_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
+    chunks = _chunks(hspec.levels[-1], hspec.level_items(hspec.n_levels - 1, items), cuda)
+    if (case, n) == ("mixed", 1500):
+        assert hu.fold_geometry(hplan, 2, 1500, 4, _sms(cuda)).shared == (True, True, False)
     for lo, hi in (((1 << 31) - (1 << 24), (1 << 31) - 1),
                    (-(1 << 31), -(1 << 31) + (1 << 24))):
         table = _random_table((2, hplan.padded_cols), 29, cuda, lo=lo, hi=hi)
         got = hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
         want = hu.hier_update_signed_ref(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
         assert torch.equal(got, want)
-        assert bool(((got > 0) != (table > 0)).any())    # it did wrap
+        if n >= 255 and case != "zeros":
+            assert bool(((got > 0) != (table > 0)).any())    # it did wrap
         with monkeypatch.context() as m:                  # and on the global route
             _all_global(m, hplan, 2, 1500, cuda)
             again = hu.hier_update_signed(hplan, table.clone(), chunks, f, q, r, s_q, s_r)
         assert torch.equal(again, want)
         plan = hplan.plan
         flat = table[:, : plan.table_size].contiguous()
-        assert torch.equal(su.sketch_update_signed(plan, flat.clone(), chunks, f, q, r, s_q, s_r),
-                           su.sketch_update_signed_ref(plan, flat.clone(), chunks, f, q, r,
-                                                       s_q, s_r))
+        got = su.sketch_update_signed(plan, flat.clone(), chunks, f, q, r, s_q, s_r)
+        want = su.sketch_update_signed_ref(plan, flat.clone(), chunks, f, q, r, s_q, s_r)
+        assert torch.equal(got, want)
+        if n >= 255 and case != "zeros":
+            assert bool(((got > 0) != (flat > 0)).any())     # K6 wrapped too
 
 
 def _skewed_block(hspec, n, seed, order):
@@ -477,9 +520,7 @@ def test_k8_k8f_both_routes_match_plain(cuda, monkeypatch, dtype, tile_h, order,
 def test_k8_k8f_keys_of_many_chunks_match_plain(cuda, monkeypatch, dtype):
     """Keys of 10 chunks, more than the kernel holds in registers, hash
     from the chunk array on both routes."""
-    schema = KeySchema(domains=(1 << 32,) * 5)
-    hspec = hh.HierarchySpec.from_spec(
-        sk.mod_sketch_spec(schema, [(0, 1), (2,), (3, 4)], (40, 9, 11), 3))
+    hspec = _many_chunks_hspec()
     assert hspec.levels[-1].schema.total_chunks == 10
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     (q, r), s_q, s_r = _signed_params(hspec.levels[-1], 66, cuda)
@@ -813,12 +854,15 @@ def test_k3f_float32_hierarchy_fold_matches_plain(cuda, monkeypatch, kind, route
     _f32_equal(got, want, kind)
 
 
-@pytest.mark.parametrize("kind", ["integer", "gaussian"])
-def test_k6f_float32_signed_flat_fold_matches_plain(cuda, kind):
-    spec = _hspec().levels[-1]
+@pytest.mark.parametrize("kind,case,n", [("integer", "mixed", 3000), ("gaussian", "mixed", 3000)]
+                         + [("integer", c, n) for c, n in K6_CASES[1:]])
+def test_k6f_float32_signed_flat_fold_matches_plain(cuda, kind, case, n):
+    hspec, items, freqs = _k6_block(case, n, 48)
+    spec = hspec.levels[-1]
     plan = make_plan(spec)
     (q, r), s_q, s_r = _signed_params(spec, 47, cuda)
-    items, freqs = _signed_block(_hspec(), 3000, 48)
+    if n > 3001:                     # every partial sum an integer below 2^24
+        freqs = np.sign(freqs) * (np.abs(freqs) % 256)
     chunks = _chunks(spec, items, cuda)
     f = torch.from_numpy(_f32_values(freqs, kind, 49)).to(cuda)
     base = torch.zeros((spec.width, su.padded_table_size(spec.table_size, 128)),

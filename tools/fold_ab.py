@@ -1,4 +1,4 @@
-"""Time the hierarchy folds (K3, K3f, K8, K8f) of two source trees on one
+"""Time the folds (K3, K3f, K8, K8f, K6, K6f) of two source trees on one
 card, in turns, beside ``index_add_`` of the same values.
 
     python3 tools/fold_ab.py --trees OLD NEW [--out FILE]
@@ -13,13 +13,17 @@ and times, with L2 evicted before every call (CUDA events):
   top source holds the most rows, into zero ``4 x (4096 + 4096^2)`` tables;
 - K8: the turnstile stream's first block (shuffled, a seeded half of the
   edges deleted) into a zero signed hierarchy of the same spec;
+- K6 and K6f: the same block into a zero ``4 x 4096^2`` signed flat
+  sketch, int32 and float32;
 - K8f: starcoder2-7b's embed leaf (49,152 x 4,608 keys, the compressor's
   two-level plan, integer values in [-8, 8]).
 
-Only the wrappers' public signatures are used, so trees from before and
-after a kernel's redesign run the same script.  Prints one JSON object per
-run and, last, the card's name and power limit with every run's rows.
-Needs a CUDA card.
+Each row also has the wrapper's warm time: the mean of back-to-back calls,
+which the host's launch cost sets when it exceeds the kernel's.  Only the
+wrappers' public signatures are used, so trees from before and after a
+kernel's redesign run the same script.  Prints one JSON object per run
+and, last, the card's name and power limit with every run's rows.  Needs
+a CUDA card.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ def one(tree: str) -> dict:
     from repro_torch.core.hashing import KeySchema, draw_hash_params_np
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import hier_update as hu
-    from repro_torch.kernels.hashes import all_indices, all_sign_bits
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan
     from repro_torch.streams import zipf_graph_stream
     from repro_torch.training import grad_compression as gc
 
@@ -65,6 +70,16 @@ def one(tree: str) -> dict:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    def warm_ms(fn, reps=200):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
 
     def params(rng, spec):
         return (torch.from_numpy(draw_hash_params_np(rng, (spec.width, spec.schema.total_chunks))
@@ -105,7 +120,8 @@ def one(tree: str) -> dict:
         scratch = table.clone()
         out[name] = {"ms": cold_ms(lambda: fold(scratch, chunks, vals), reps),
                      "index_add_ms": cold_ms(
-                         lambda: scratch.view(-1).index_add_(0, flat, vals_all), reps)}
+                         lambda: scratch.view(-1).index_add_(0, flat, vals_all), reps),
+                     "warm_ms": warm_ms(lambda: fold(scratch, chunks, vals), 2 * reps)}
         out[name]["ratio"] = out[name]["ms"] / out[name]["index_add_ms"]
 
     def k3(table, chunks, vals):
@@ -133,6 +149,20 @@ def one(tree: str) -> dict:
     row("K8", lambda t, c, v: hu.hier_update_signed(hplan, t, c, v, q, r, s_q, s_r),
         table, chunks, vals, flat, vals_all)
     del chunks, flat, vals_all
+
+    # K6 / K6f: the same block into a zero signed flat sketch of the spec
+    plan = make_plan(spec)
+    h_pad = su.padded_table_size(spec.table_size, 512)
+    chunks = spec.schema.module_chunks(torch.from_numpy(items[order].astype(np.int64)).to(dev))
+    idx = all_indices(plan, chunks, q, r)
+    sign = 1 - 2 * ((all_sign_bits(plan, chunks, s_q, s_r) >> (len(plan.ranges) - 1)) & 1)
+    flat = (torch.arange(4, device=dev)[:, None] * h_pad + idx).reshape(-1)
+    for name, dtype in (("K6", torch.int32), ("K6f", torch.float32)):
+        v = vals.to(dtype)
+        row(name, lambda t, c, vv: su.sketch_update_signed(plan, t, c, vv, q, r, s_q, s_r),
+            torch.zeros((4, h_pad), dtype=dtype, device=dev), chunks, v, flat,
+            (sign.to(dtype) * v).reshape(-1))
+    del chunks, idx, sign, flat
 
     plan = gc._leaf_plan(gc.CompressionConfig(enabled=True), EMBED)
     lspec = plan.hspec.levels[-1]
@@ -194,9 +224,9 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(card)
-    for name in ("K3", "K3_heaviest", "K3f", "K8", "K8f_embed"):
+    for name in ("K3", "K3_heaviest", "K3f", "K8", "K6", "K6f", "K8f_embed"):
         print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name]['index_add_ms']:.5f}"
-                             for run in runs))
+                             f"/{run[name]['warm_ms']:.5f}" for run in runs))
     return 0
 
 
