@@ -58,16 +58,20 @@ Phases, any failure of which exits non-zero:
    gradient within 2^-10 of the sum of |v| per cell;
 3. hold each kernel (K1-K9, K5i, K1f, K3f, K6f, K8f) against its plain
    version on the card at the shapes its path gives it (int32 and
-   integer-valued float32: bit-identical; K8f at all 9 leaf shapes), K5,
-   K3, K3f, K8 and K8f on both residency routes (K8 also on the stream's
-   first block in its sorted order, K3 also on the stream's heaviest block:
-   the one whose top source holds the most rows);
+   integer-valued float32: bit-identical; K8f at all 9 leaf shapes; K5 and
+   K5i also on float32 tables fed non-integer frequencies, bit-identical),
+   K5, K3, K3f, K8 and K8f on both residency routes (K8 also on the
+   stream's first block in its sorted order, K3 and K5's shared route also
+   on the stream's heaviest block: the one whose top source holds the most
+   rows);
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
    torch.profiler; set both beside the least time the card could take,
-   and K5/K5i also beside their chain bound (B dependent steps of one
-   table load and a warp minimum, each step measured by a probe kernel),
+   and K5/K5i also beside their depth bound (one access to the table in
+   HBM, then D_r dependent steps of the fold's recurrence in registers,
+   both latencies measured by a probe kernel; D, D_r and S of each timed
+   block from ``fold_depths``),
    K8f, K6 and K6f beside probes of what bounds them (a finest level or a
    flat table that fits L2, all-zero values; for K6/K6f also the adds a
    warp combine would save);
@@ -1358,19 +1362,25 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
            shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
 
 
-def chain_step_ms(n_cells: int, shared: bool, evict, steps: int = BLOCK) -> float:
-    """Milliseconds per dependent step of the fold's chain -- one table load
-    whose address depends on the last warp minimum, then the warp minimum --
-    over a random permutation of ``n_cells`` int32 cells in shared or
-    global memory (the probe kernel of csrc/conservative_kernels.cu)."""
+def probe_step_ms(evict, n_cells: int = 0, steps: int = BLOCK) -> float:
+    """Milliseconds per dependent step of the probe kernel of
+    csrc/conservative_kernels.cu: with ``n_cells``, one load whose address
+    is the last load's value, over one random cycle through ``n_cells``
+    int32 cells in global memory (an access to the table's memory); else
+    the fold's recurrence m <- max(m, m + f) in registers."""
     dev = torch.device(DEVICE)
-    perm = torch.randperm(n_cells, device=dev, dtype=torch.int32)
+    if n_cells:
+        order = torch.randperm(n_cells, device=dev, dtype=torch.int32)
+        cells = torch.empty_like(order)
+        cells[order.long()] = order.roll(-1)
+    else:
+        cells = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     out = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _cuda.library()
 
     def probe():
-        _cuda.check(lib.sk_chain_probe(perm.data_ptr(), n_cells, steps, int(shared),
-                                       out.data_ptr(), _cuda.stream_of(perm)),
+        _cuda.check(lib.sk_chain_probe(cells.data_ptr(), cells.numel(), steps, int(n_cells > 0),
+                                       out.data_ptr(), _cuda.stream_of(cells)),
                     "chain probe")
 
     return cold_ms(probe, 3, evict) / steps
@@ -1384,20 +1394,42 @@ def fold_touched(tables, idxs, f) -> int:
         for t, idx in zip(tables, idxs))
 
 
+def depth_note(idx: torch.Tensor, f: torch.Tensor, probe: dict) -> dict:
+    """D, D_r and S of one block's cells ``idx`` [w, B] (``fold_depths``),
+    and the depth bound: one access to the table's memory, then D_r
+    dependent steps of the recurrence (``probe``'s two times, in ns)."""
+    d = scu.fold_depths(idx, f)
+    return {"D": d.depth, "D_r": d.run_depth, "S": d.window_steps,
+            "depth_bound_ms": (probe["access"] + d.run_depth * probe["step"]) * 1e-6}
+
+
+def host_err(got, want) -> float:
+    """Max |err| of kernel tables against plain ones computed on host copies."""
+    got, want = ([got], [want]) if torch.is_tensor(got) else (got, want)
+    return max(max_abs_err(a.cpu(), b) for a, b in zip(got, want))
+
+
 def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
     """K5i on the first block into copies of the live conservative levels;
     K5 on the first block into copies of the flat conservative table
     (global route) and of the accuracy path's mod-sketch table (shared
-    route).  The plain folds run on the card, one Python step per row."""
+    route, also on the stream's heaviest block).  The plain folds of the
+    timed int32 rows run on the card, one Python step per row; the float32
+    checks (the block's frequencies times 0.37, so not integers) and the
+    heaviest block's compare with the plain fold of host copies.  Each row
+    carries D, D_r and S of its block and the depth bound: one access to
+    the table in HBM (where it starts on both routes, L2 evicted), then D_r
+    dependent steps of the fold's recurrence in registers."""
     dev = torch.device(DEVICE)
     blk_items = stream.items[:BLOCK]
     f = torch.from_numpy(stream.freqs[:BLOCK]).to(dev, torch.int32)
+    f32 = f.to(torch.float32) * 0.37
     reps = (5, 1, 5, 5)
-    t_shared = chain_step_ms(W_ACC * acc_ks.h_pad, True, kr.evict)
-    t_global = chain_step_ms(WIDTH * ks.h_pad, False, kr.evict)
-    log(f"chain step: {t_shared * 1e6:.2f} ns in shared memory "
-        f"({W_ACC * acc_ks.h_pad} cells), {t_global * 1e6:.2f} ns in global memory "
-        f"({WIDTH * ks.h_pad} cells)")
+    probe = {"access": probe_step_ms(kr.evict, WIDTH * ks.h_pad) * 1e6,
+             "step": probe_step_ms(kr.evict, steps=16 * BLOCK) * 1e6}
+    log(f"depth probe: {probe['access']:.2f} ns an access through "
+        f"{WIDTH * ks.h_pad} cells in global memory, {probe['step']:.3f} ns a step of "
+        f"the recurrence in registers")
 
     # K5i: both levels, one launch
     tables = [st.table for st in ep.state.states]
@@ -1406,9 +1438,16 @@ def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
     scu.conservative_fold_tables(got, idxs, f)
     scu.conservative_fold_tables_ref(want, idxs, f)
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    got = [t.to(torch.float32) for t in tables]
+    want = [t.cpu() for t in got]
+    scu.conservative_fold_tables(got, idxs, f32)
+    err_f32 = host_err(got, scu.conservative_fold_tables_ref(
+        want, [i.cpu() for i in idxs], f32.cpu()))
+    check(err_f32 == 0, f"K5i on float32 levels bit-identical to its plain version ({err_f32})")
     del got, want
     scratch = [t.clone() for t in tables]
     n_lv = len(tables)
+    routes = [scu.residency(WIDTH, t.shape[1], t.element_size()) for t in tables]
     row = kr.measure(
         "conservative_fold", "sk_conservative_fold_kernel", err=err,
         call=lambda: scu.conservative_fold_tables(scratch, idxs, f),
@@ -1417,24 +1456,38 @@ def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
         n_ops=4 * WIDTH * BLOCK * n_lv,
         shape=f"B={BLOCK} w={WIDTH} levels={n_lv} cols={[t.shape[1] for t in tables]}",
         reps=reps)
-    row.update(residency="level 0 shared, level 1 global",
-               chain_step_ns={"shared": t_shared * 1e6, "global": t_global * 1e6},
-               chain_bound_ms=BLOCK * t_global)
+    depths = [depth_note(i, f, probe) for i in idxs]
+    row.update(residency=", ".join(f"level {l} {rt}" for l, rt in enumerate(routes)),
+               probe_ns=probe, depths=depths, depth_bound_ms=max(d["depth_bound_ms"] for d in depths),
+               f32_max_abs_err=err_f32)
+    log(f"K5i depths per level (D, D_r, S, depth bound ms): {depths}")
     kr.rows.append(row)
     del scratch
 
     # K5: the flat 268 MB table (global route), then the accuracy path's
-    # 5 x 4,096 table (shared route)
-    def k5(sketch, t_step):
+    # 5 x 4,096 table (shared route), also on the heaviest block
+    def k5_inputs(sketch, items):
+        chunks = sketch.spec.schema.module_chunks(as_index_tensor(items, dev))
+        return chunks, all_indices(sketch.plan, chunks, *sketch.params)
+
+    def k5_host_err(sketch, table, chunks, freqs):
+        q, r = sketch.params
+        got = scu.sketch_update_conservative(sketch.plan, table.clone(), chunks, freqs, q, r)
+        return host_err(got, scu.sketch_update_conservative_ref(
+            sketch.plan, table.cpu(), chunks.cpu(), freqs.cpu(), q.cpu(), r.cpu()))
+
+    def k5(sketch):
         plan, table = sketch.plan, sketch.table
         q, r = sketch.params
-        chunks = sketch.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
+        chunks, idx = k5_inputs(sketch, blk_items)
         err = max_abs_err(
             scu.sketch_update_conservative(plan, table.clone(), chunks, f, q, r),
             scu.sketch_update_conservative_ref(plan, table.clone(), chunks, f, q, r))
+        err_f32 = k5_host_err(sketch, table.to(torch.float32), chunks, f32)
+        check(err_f32 == 0, f"K5 on a float32 table bit-identical to its plain version "
+                            f"({err_f32})")
         scratch = table.clone()
         w, h_pad = table.shape
-        idx = all_indices(plan, chunks, q, r)
         out = kr.measure(
             "sketch_update_conservative", "sk_conservative_update_kernel", err=err,
             call=lambda: scu.sketch_update_conservative(plan, scratch, chunks, f, q, r),
@@ -1446,17 +1499,39 @@ def conservative_kernel_rows(kr, hspec, ep, ks, acc_ks, stream):
             n_ops=hash_ops(plan, BLOCK) + 4 * w * BLOCK,
             shape=f"B={BLOCK} w={w} h_pad={h_pad}", reps=reps)
         out.update(residency=scu.residency(w, h_pad, table.element_size()),
-                   chain_step_ns=t_step * 1e6, chain_bound_ms=BLOCK * t_step)
+                   probe_ns=probe, f32_max_abs_err=err_f32, **depth_note(idx, f, probe))
+        log(f"K5 {out['residency']} route: D {out['D']}, D_r {out['D_r']}, S {out['S']}, "
+            f"depth bound {out['depth_bound_ms']:.5f} ms")
         return out
 
-    row = k5(ks, t_global)
-    shared = k5(acc_ks, t_shared)
+    row = k5(ks)
+    shared = k5(acc_ks)
     check(row["residency"] == "global" and shared["residency"] == "shared",
           "K5 measured on both residency routes")
+    hb = heaviest_block(stream.items)
+    h_items = stream.items[hb * BLOCK : (hb + 1) * BLOCK]
+    hf = torch.from_numpy(stream.freqs[hb * BLOCK : (hb + 1) * BLOCK]).to(dev, torch.int32)
+    plan, table, (q, r) = acc_ks.plan, acc_ks.table, acc_ks.params
+    hchunks, hidx = k5_inputs(acc_ks, h_items)
+    err = k5_host_err(acc_ks, table, hchunks, hf)
+    check(err == 0, f"K5 on the heaviest block bit-identical to its plain version ({err})")
+    scratch = table.clone()
+    n_h = h_items.shape[0]
+    heavy = {"block": hb, "rows": n_h, "top_source_rows": top_source_rows(h_items),
+             "ms": cold_ms(lambda: scu.sketch_update_conservative(plan, scratch, hchunks, hf,
+                                                                  q, r), 5, kr.evict),
+             "bound_ms": bound_ms(
+                 key_bytes(acc_ks.spec.schema, n_h) + nbytes(hf) + param_bytes(q, r)
+                 + 8 * fold_touched([table], [hidx], hf),
+                 hash_ops(plan, n_h) + 4 * W_ACC * n_h)[0],
+             "max_abs_err": err, **depth_note(hidx, hf, probe)}
+    log(f"K5 shared route on the heaviest block: {heavy}")
     row["max_abs_err"] = max(row["max_abs_err"], shared["max_abs_err"])
+    row["f32_max_abs_err"] = max(row["f32_max_abs_err"], shared["f32_max_abs_err"])
     row["shared_route"] = {k: shared[k] for k in (
         "ms", "device_ms", "warm_call_ms", "plain_ms", "bound_ms", "bound_by",
-        "chain_step_ns", "chain_bound_ms", "max_abs_err", "shape")}
+        "probe_ns", "D", "D_r", "S", "depth_bound_ms", "max_abs_err", "shape")}
+    row["shared_route"]["heaviest_block"] = heavy
     kr.rows.append(row)
 
 

@@ -8,15 +8,28 @@ with frequency f is
     est   = min_k cur_k + f
     table[k, idx_k(b)] = max(cur_k, est)  (max-scatter)
 
-The min couples all w rows of one item and item b+1 reads item b's writes,
-so the fold is sequential in B.  The TPU kernel keeps the whole table
-resident in VMEM and walks the block as its grid; the Hopper kernels
-(``csrc/conservative_kernels.cu``) fold one table per CTA, a chunk of
-:func:`index_chunk` items at a time: the CTA stages the chunk's cell
-indices and frequencies in shared memory, then one warp folds it, lane k
-on row k.  The table itself sits in shared memory when it fits beside the
-staging buffers (:func:`residency`) and in global memory otherwise.  Both
-routes run the same kernel body.
+The min couples all w rows of one item, and item b reads the writes of
+every earlier item that shares one of its w cells.  Items whose cells are
+pairwise disjoint commute, so the fold need not walk the block's length,
+only its dependency depth.  The TPU kernel keeps the whole table resident
+in VMEM and walks the block as its grid; the Hopper kernels
+(``csrc/conservative_kernels.cu``) fold one table per CTA in the order
+:func:`fold_schedule` describes:
+
+* producer warps, one a chunk of :func:`buffer_items` items, stage the
+  block in shared memory: they hash (K5) or read (K5i) the cells, cut the
+  chunk into runs (maximal runs of adjacent items with identical cells)
+  and give each run its level in its window of 32 runs;
+* two fold warps take the windows in turns, one run per lane, and apply a
+  window level by level: runs of one level touch pairwise disjoint cells,
+  and each cell still sees its writers in stream order.  A lane folds its
+  whole run in registers (``m <- max(m, m + f_i)`` over the run, in
+  stream order), so the result is bit for bit the per-item fold's.
+
+:func:`fold_depths` reports the depths that bound this work.  The table
+itself sits in shared memory when it fits beside the staging buffers
+(:func:`residency`) and in global memory otherwise; both routes run the
+same kernel body.
 
 * **K5** (:func:`sketch_update_conservative`) hashes each item with the
   ``composite_index`` helper (K0) and folds it into a flat [w, h_pad]
@@ -32,15 +45,17 @@ Tables are int32 or float32; both are exact (gather, min, add, max).  An
 int32 ``min + f`` past 2^31 - 1 wraps as jnp's does, and then
 ``max(cur, est) = cur``.  NaN never enters: callers refuse negative and
 NaN frequencies first (``core/sketch.check_conservative_freqs``), so the
-plain versions do not emulate jnp's NaN propagation.  Both wrappers fold in
-place (the reference donates the table) and run the plain per-item loop
-only for tensors on the CPU.
+plain versions do not emulate jnp's NaN propagation, and a zero frequency
+leaves every cell as it is.  Both wrappers fold in place (the reference
+donates the table) and run the plain per-item loop only for tensors on
+the CPU.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _cuda
@@ -53,15 +68,27 @@ TABLE_DTYPES = (torch.int32, torch.float32)
 
 
 def index_chunk(w: int) -> int:
-    """Items the kernels stage per chunk: about 16 KB of int32 cell indices
-    (4,096 // w items, between 1 and 1,024)."""
+    """Items whose staging the residency rule budgets for: about 16 KB of
+    int32 cell indices (4,096 // w items, between 1 and 1,024)."""
     return max(1, min(1024, 4096 // w))
 
 
 def staging_bytes(w: int, itemsize: int) -> int:
-    """Shared memory of one chunk's staged indices [w, chunk] (int32) and
-    frequencies [chunk]."""
+    """Shared memory the residency rule sets aside for staging:
+    :func:`index_chunk` items' int32 cell indices [w] and frequency."""
     return index_chunk(w) * (4 * w + itemsize)
+
+
+WINDOW = 32
+
+
+def buffer_items(w: int) -> int:
+    """Items in each of the kernels' staging buffers: a quarter of
+    :func:`index_chunk`, at most 128 (4 windows of single-item runs) and at
+    least 1.  The kernels lay the buffers out and take as many as fit
+    (``buffers_for`` in csrc/conservative_kernels.cu); for w below 1,366 two
+    of them and the kernels' reserve fit in :func:`staging_bytes`."""
+    return max(1, min(128, index_chunk(w) // 4))
 
 
 def residency(w: int, cols: int, itemsize: int,
@@ -73,6 +100,104 @@ def residency(w: int, cols: int, itemsize: int,
     limit = SHARED_BYTES if shared_bytes is None else shared_bytes
     fits = w * cols * itemsize + staging_bytes(w, itemsize) <= limit
     return "shared" if fits else "global"
+
+
+class Run(NamedTuple):
+    """Items [start, end) of a block: adjacent, with identical cells."""
+    start: int
+    end: int
+    level: int     # 0-based level in its window
+
+
+class FoldDepths(NamedTuple):
+    """The dependency structure of one block's conservative fold."""
+    depth: int          # D: the longest chain of items that share a cell
+    run_depth: int      # D_r: the same after runs collapse
+    window_steps: int   # S: the kernels' level steps, summed over windows
+
+
+def _run_starts(cols: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """First item of each maximal run of identical cell columns in [lo, hi)."""
+    new = np.ones(hi - lo, dtype=bool)
+    new[1:] = np.any(cols[:, lo + 1 : hi] != cols[:, lo : hi - 1], axis=0)
+    return lo + np.flatnonzero(new)
+
+
+def _chain_levels(cols: np.ndarray, live: np.ndarray) -> List[int]:
+    """For each column of ``cols`` [w, n], the number of live columns in
+    the longest chain ending at it whose neighbours share a cell in one row
+    (0 for a dead column).  The last column to touch a cell holds the
+    highest level among those that touched it, so one pass suffices."""
+    last = [dict() for _ in range(cols.shape[0])]
+    out = []
+    for col, ok in zip(cols.T.tolist(), live.tolist()):
+        if not ok:
+            out.append(0)
+            continue
+        lv = 1 + max(seen.get(c, 0) for seen, c in zip(last, col))
+        for seen, c in zip(last, col):
+            seen[c] = lv
+        out.append(lv)
+    return out
+
+
+def _live_runs(cols: np.ndarray, nonzero: np.ndarray, lo: int, hi: int):
+    """The runs of [lo, hi): their starts, ends, and whether any of their
+    frequencies is nonzero (a run of zero frequencies changes no cell)."""
+    starts = _run_starts(cols, lo, hi)
+    ends = np.append(starts[1:], hi)
+    live = np.add.reduceat(nonzero[lo:hi], starts - lo) > 0
+    return starts, ends, live
+
+
+def fold_schedule(idx: torch.Tensor, freqs: torch.Tensor,
+                  chunk: Optional[int] = None) -> List[List[Run]]:
+    """The kernels' order of work on one block, as a list of windows.
+
+    ``idx`` [w, B] holds each item's cell per row.  The block is cut into
+    staging chunks of ``chunk`` items (:func:`buffer_items` by default),
+    each chunk into runs of adjacent items with identical cells, and the
+    runs of each chunk into windows of 32.  Each window lists its live
+    runs (those with a nonzero frequency) with their level: 1 + the
+    highest level among the window's earlier runs that share a cell with
+    it in some row.  Applying the windows in order, and a window's runs
+    level by level, each run's items in stream order, is the per-item fold.
+    """
+    cols = idx.detach().cpu().numpy()
+    nonzero = (freqs.detach().cpu() != 0).numpy()
+    w, n = cols.shape
+    chunk = buffer_items(w) if chunk is None else chunk
+    windows = []
+    for lo in range(0, n, chunk):
+        starts, ends, live = _live_runs(cols, nonzero, lo, min(n, lo + chunk))
+        for a in range(0, starts.shape[0], WINDOW):
+            sl = slice(a, a + WINDOW)
+            levels = _chain_levels(cols[:, starts[sl]], live[sl])
+            windows.append([Run(int(s0), int(e0), lv - 1)
+                            for s0, e0, lv in zip(starts[sl], ends[sl], levels) if lv])
+    return windows
+
+
+def fold_depths(idx: torch.Tensor, freqs: torch.Tensor,
+                chunk: Optional[int] = None) -> FoldDepths:
+    """D, D_r and S of one block (``idx`` [w, B], ``freqs`` [B]): the
+    dependency depth over items with a nonzero frequency, the depth over
+    runs of adjacent items with identical cells (the whole block, no chunk
+    cuts), and the level steps the kernels take (:func:`fold_schedule`'s
+    windows, each as deep as its deepest run).  Any exact fold takes at
+    least D_r dependent steps of ``m <- max(m, m + f)``; the kernels take
+    S level steps."""
+    cols = idx.detach().cpu().numpy()
+    nonzero = (freqs.detach().cpu() != 0).numpy()
+    n = cols.shape[1]
+    if n == 0:
+        return FoldDepths(0, 0, 0)
+    depth = max(_chain_levels(cols, nonzero))
+    starts, _, live = _live_runs(cols, nonzero, 0, n)
+    run_depth = max(_chain_levels(cols[:, starts], live))
+    steps = sum(1 + max(r.level for r in win) for win in fold_schedule(idx, freqs, chunk)
+                if win)
+    return FoldDepths(depth, run_depth, steps)
 
 
 def conservative_fold_tables_ref(tables: Sequence[torch.Tensor],
@@ -144,8 +269,8 @@ def sketch_update_conservative(plan: IndexPlan, table: torch.Tensor,
     with torch.cuda.device(table.device):
         rc = getattr(lib, fn)(
             ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
-            f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared), index_chunk(w),
-            _cuda.stream_of(table))
+            f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared),
+            buffer_items(w), _cuda.stream_of(table))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return table
@@ -197,8 +322,8 @@ def conservative_fold_tables(tables: Sequence[torch.Tensor],
     fn = "sk_conservative_fold_" + ("i32" if t0.dtype == torch.int32 else "f32")
     lib = _cuda.library()
     with torch.cuda.device(t0.device):
-        rc = getattr(lib, fn)(ctypes.byref(s), f.data_ptr(), b, index_chunk(w),
-                              _cuda.stream_of(t0))
+        rc = getattr(lib, fn)(ctypes.byref(s), f.data_ptr(), b,
+                              buffer_items(w), _cuda.stream_of(t0))
     _cuda.check(rc, name)
     _cuda.LAUNCHES[name] += 1
     return tables

@@ -6,13 +6,16 @@ on a machine that has one).  Inputs are made with numpy from a seed.  On
 int32 tables, and on float32 tables fed integer-valued values (every
 partial sum exact), the tolerance is exact equality; float32 tables fed
 Gaussian values agree within rtol 1e-5 of the table's scale, since float
-atomics add in any order.  Each kernel is
+atomics add in any order.  The conservative folds (K5, K5i) add in stream
+order, so they equal their plain versions exactly on float32 tables fed
+non-integer values too.  Each kernel is
 compared with its plain version on the same card and the same inputs, at
 small shapes that still cover joint groups, multi-chunk modules,
 duplicate keys, zero-frequency rows, level widths that are not tile
 multiples, int32 wraparound, negative (turnstile) frequencies, strided
-level views, and both residency routes of the conservative fold (K5, K5i)
-and of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables.
+level views, and both residency routes of the conservative fold (K5, K5i;
+also on blocks of long and short runs of a few keys, or of one key) and
+of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables.
 """
 import numpy as np
 import pytest
@@ -682,7 +685,8 @@ def _cons_table(shape, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("w,ranges,route", [(3, (16, 9, 7), "shared"),
                                             (3, (48, 90, 7), "global"),
-                                            (40, (6, 5, 3), "shared")])
+                                            (40, (6, 5, 3), "shared"),
+                                            (40, (48, 90, 7), "global")])
 def test_k5_conservative_update_matches_plain(cuda, monkeypatch, dtype, w, ranges,
                                               route):
     schema = KeySchema(domains=(1 << 32, 256, 1000, 4096))
@@ -712,14 +716,15 @@ def test_k5_conservative_update_matches_plain(cuda, monkeypatch, dtype, w, range
         assert torch.equal(again, want)
 
 
+@pytest.mark.parametrize("w", [4, 40])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-def test_k5i_folds_every_level_in_one_launch(cuda, dtype):
-    hspec = _hspec(w=4)
+def test_k5i_folds_every_level_in_one_launch(cuda, dtype, w):
+    hspec = _hspec(w=w)
     params = _params(hspec.levels[-1], 33, cuda)
     state = hh.init_hierarchy(hspec, params, dtype=dtype, device=cuda)
     for st, seed in zip(state.states, (34, 35, 36)):
         st.table.copy_(_cons_table(tuple(st.table.shape), dtype, seed, cuda))
-    routes = [scu.residency(4, st.table.shape[1], 4) for st in state.states]
+    routes = [scu.residency(w, st.table.shape[1], 4) for st in state.states]
     assert "shared" in routes and "global" in routes
     items, freqs = _block(hspec, 4000, 37)
     idxs = hh.hierarchy_indices(hspec, params, items)
@@ -738,6 +743,89 @@ def test_k5i_folds_every_level_in_one_launch(cuda, dtype):
     assert _cuda.LAUNCHES["conservative_fold"] == n0 + 2
     for st, b in zip(state.states, want):
         assert torch.equal(st.table, b)
+
+
+def _adversarial(n, seed, kind, dtype, n_keys=12):
+    """Key ids [n] and frequencies [n] that stress the fold's schedule:
+    ``runs`` -- 300 short runs (windows full of runs), then runs of 400 to
+    900 items (across staging buffers), a fifth of the frequencies zero;
+    ``one_key`` -- one key n times.  int32 frequencies are large enough to
+    wrap a run's sum past 2^31 from cells near it; float32 ones are not
+    integers."""
+    rng = np.random.default_rng(seed)
+    if kind == "one_key":
+        order = np.zeros(n, np.int64)
+    else:
+        lengths = np.concatenate([rng.geometric(0.7, 300), rng.integers(400, 900, 8)])
+        order = np.repeat(rng.integers(0, n_keys, lengths.size), lengths)[:n]
+    if dtype == torch.int32:
+        freqs = rng.integers(0, 1 << 16, n).astype(np.int32)
+    else:
+        freqs = (rng.random(n) * 1000).astype(np.float32)
+    freqs[rng.random(n) < 0.2] = 0
+    return order, freqs
+
+
+@pytest.mark.parametrize("w", [3, 40])
+@pytest.mark.parametrize("kind", ["runs", "one_key"])
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k5_adversarial_blocks_match_plain(cuda, monkeypatch, dtype, route, kind, w):
+    """K5 on blocks of long and short runs of a few keys, or of one key, on
+    both routes, with the rows in registers (w = 3) or read through the
+    table (w = 40): bit for bit with the per-item fold."""
+    schema = KeySchema(domains=(1 << 32, 256, 1000, 4096))
+    spec = sk.mod_sketch_spec(schema, [(1, 2), (0,), (3,)], (16, 9, 7), w)
+    hspec = hh.HierarchySpec.from_spec(spec)
+    plan = make_plan(spec)
+    params = _params(spec, 50, cuda)
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    assert scu.residency(w, h_pad, 4) == "shared"
+    if route == "global":
+        monkeypatch.setattr(scu, "residency", lambda *args, **kw: "global")
+    keys, _ = _block(hspec, 12, 51)
+    order, freqs = _adversarial(3000, 52, kind, dtype)
+    chunks = spec.schema.module_chunks(torch.from_numpy(keys[order].astype(np.int64)).to(cuda))
+    f = torch.from_numpy(freqs).to(cuda)
+    base = _cons_table((w, h_pad), dtype, 53, cuda)
+    n0 = _cuda.LAUNCHES["sketch_update_conservative"]
+    got = scu.sketch_update_conservative(plan, base.clone(), chunks, f, params.q, params.r)
+    want = scu.sketch_update_conservative_ref(plan, base.clone(), chunks, f, params.q,
+                                              params.r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sketch_update_conservative"] == n0 + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, base)
+
+
+@pytest.mark.parametrize("w", [4, 40])
+@pytest.mark.parametrize("kind", ["runs", "one_key"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k5i_adversarial_blocks_match_plain(cuda, dtype, kind, w):
+    """K5i on the same blocks, as given indices into a shared-route table
+    (cells among 7 a row, so runs of different keys collide) and a
+    global-route table, in one launch, with the rows in registers (w = 4)
+    or read through the table (w = 40): bit for bit with the per-item fold."""
+    rng = np.random.default_rng(54)
+    n = 3000
+    order, freqs = _adversarial(n, 55, kind, dtype)
+    tables, idxs = [], []
+    for cols, span, seed in ((1000, 7, 56), (30_000, 30_000, 57)):
+        tables.append(_cons_table((w, cols), dtype, seed, cuda))
+        cells = rng.integers(0, span, (12, w))
+        idxs.append(torch.from_numpy(np.ascontiguousarray(cells[order].T)).to(cuda))
+    assert [scu.residency(w, t.shape[1], 4) for t in tables] == ["shared", "global"]
+    f = torch.from_numpy(freqs).to(cuda)
+    got = [t.clone() for t in tables]
+    want = [t.clone() for t in tables]
+    n0 = _cuda.LAUNCHES["conservative_fold"]
+    scu.conservative_fold_tables(got, idxs, f)
+    scu.conservative_fold_tables_ref(want, idxs, f)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["conservative_fold"] == n0 + 1
+    for a, b, t in zip(got, want, tables):
+        assert torch.equal(a, b)
+        assert not torch.equal(a, t)
 
 
 def test_conservative_wrappers_refuse_what_they_do_not_take(cuda):

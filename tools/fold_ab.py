@@ -1,5 +1,6 @@
-"""Time the folds (K3, K3f, K8, K8f, K6, K6f) of two source trees on one
-card, in turns, beside ``index_add_`` of the same values.
+"""Time the folds (K3, K3f, K8, K8f, K6, K6f, K5, K5i) of two source trees
+on one card, in turns, beside ``index_add_`` of the same values where one
+call computes the same function.
 
     python3 tools/fold_ab.py --trees OLD NEW [--out FILE]
 
@@ -15,8 +16,18 @@ and times, with L2 evicted before every call (CUDA events):
   edges deleted) into a zero signed hierarchy of the same spec;
 - K6 and K6f: the same block into a zero ``4 x 4096^2`` signed flat
   sketch, int32 and float32;
+- K5, the conservative fold, on block 0 of the main stream into a zero
+  ``4 x 4096^2`` flat sketch (its global route), and on block 0 and the
+  heaviest block into a zero ``5 x 4092`` mod-sketch of ranges 62 x 66
+  (its shared route: ``chip_smoke.py``'s accuracy path), int32;
+- K5i on block 0 into zero int32 hierarchy levels of the main spec
+  (level 0 shared, level 1 global), one launch; the conservative rows
+  also carry the kernel's device time (torch.profiler, L2 evicted);
 - K8f: starcoder2-7b's embed leaf (49,152 x 4,608 keys, the compressor's
   two-level plan, integer values in [-8, 8]).
+
+The conservative rows have no ``index_add_``; a tree whose module has
+``fold_depths`` also reports each block's D, D_r and S.
 
 Each row also has the wrapper's warm time: the mean of back-to-back calls,
 which the host's launch cost sets when it exceeds the kernel's.  Only the
@@ -164,6 +175,58 @@ def one(tree: str) -> dict:
             (sign.to(dtype) * v).reshape(-1))
     del chunks, idx, sign, flat
 
+    # K5 on both routes and K5i, into zero int32 tables
+    from repro_torch.kernels import sketch_update_conservative as scu
+
+    def device_ms(fn, kernel, reps):
+        """Mean device ms of the kernel whose name holds ``kernel``, over
+        ``reps`` calls each after an L2 eviction (torch.profiler); None if
+        the trace holds no such kernel."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                l2.add_(1)
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        return sum(times) / len(times) / 1e3 if times else None
+
+    def cons_row(name, call, idxs, vals, reps=20):
+        kernel = "sk_conservative_" + ("fold" if name == "K5i" else "update")
+        out[name] = {"ms": cold_ms(call, reps), "warm_ms": warm_ms(call, reps),
+                     "device_ms": device_ms(call, kernel, reps // 4)}
+        if hasattr(scu, "fold_depths"):
+            out[name]["depths"] = [scu.fold_depths(i, vals)._asdict() for i in idxs]
+
+    def main_block(b):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        return (torch.from_numpy(stream.items[sl].astype(np.int64)).to(dev),
+                torch.from_numpy(stream.freqs[sl]).to(dev, torch.int32))
+
+    items0, vals0 = main_block(0)
+    acc = sk.mod_sketch_spec(spec.schema, [(0,), (1,)], (62, 66), 5)
+    for name, cspec, b in (("K5_global", spec, 0), ("K5_shared", acc, 0),
+                           ("K5_shared_heaviest", acc, hb)):
+        cplan = make_plan(cspec)
+        cq, cr = params(rng, cspec)
+        it, vals = main_block(b)
+        chunks = cspec.schema.module_chunks(it)
+        table = torch.zeros((cspec.width, su.padded_table_size(cspec.table_size, 128)),
+                            dtype=torch.int32, device=dev)
+        cons_row(name, lambda: scu.sketch_update_conservative(cplan, table, chunks, vals,
+                                                              cq, cr),
+                 [all_indices(cplan, chunks, cq, cr)], vals)
+        out[name]["route"] = scu.residency(cspec.width, table.shape[1], 4)
+    idxs = hh.hierarchy_indices(hspec, sk.SketchParams(q=q, r=r), items0)
+    tables = [torch.zeros((4, lv.table_size), dtype=torch.int32, device=dev)
+              for lv in hspec.levels]
+    cons_row("K5i", lambda: scu.conservative_fold_tables(tables, idxs, vals0), idxs, vals0)
+    del tables, idxs
+
     plan = gc._leaf_plan(gc.CompressionConfig(enabled=True), EMBED)
     lspec = plan.hspec.levels[-1]
     lplan = hu.make_hier_plan(plan.hspec, tile_h=1)
@@ -224,9 +287,11 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(card)
-    for name in ("K3", "K3_heaviest", "K3f", "K8", "K6", "K6f", "K8f_embed"):
-        print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name]['index_add_ms']:.5f}"
-                             f"/{run[name]['warm_ms']:.5f}" for run in runs))
+    for name in ("K3", "K3_heaviest", "K3f", "K8", "K6", "K6f", "K8f_embed", "K5_global",
+                 "K5_shared", "K5_shared_heaviest", "K5i"):
+        print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name].get('index_add_ms')}"
+                             f"/{run[name]['warm_ms']:.5f}/{run[name].get('device_ms')}"
+                             for run in runs))
     return 0
 
 
