@@ -23,7 +23,9 @@ Phases, any failure of which exits non-zero:
    stream inserted whole and a seeded half of its distinct edges deleted
    whole, shuffled together, into a signed hierarchy and a signed flat
    sketch of the same widths; the signed threshold descent at phi of the
-   net mass and a block of signed point queries.  Deletion must cancel bit
+   net mass (its grids on K9m, the median over rows in the launch), K9's
+   per-row estimates of the answer keys, whose median must equal their
+   estimates, and a block of signed point queries.  Deletion must cancel bit
    for bit (the tables equal those of the kept half alone), and tables and
    answers must equal the plain path's on the card; recall and precision
    against the exact answer are printed, not asserted (the median descent
@@ -51,14 +53,17 @@ Phases, any failure of which exits non-zero:
    compression (each of 9 large leaves folded by one K8f launch a step)
    and the in-step bigram sketch (K1) on: finite losses, bigram rows
    summing to 5 x 8 x 1,023, tokens/s, each step's split into
-   forward+backward, compression, optimizer and n-gram fold (CUDA
-   events), peak memory; then one more gradient through every compressed
-   leaf: exactly k distinct coordinates, ``corrected == dense +
-   residual`` exactly, and K8f against its plain version on that real
-   gradient within 2^-10 of the sum of |v| per cell;
-3. hold each kernel (K1-K9, K5i, K1f, K3f, K6f, K8f) against its plain
-   version on the card at the shapes its path gives it (int32 and
-   integer-valued float32: bit-identical; K8f at all 9 leaf shapes; K5 and
+   forward+backward, compression, optimizer and n-gram fold, and the
+   compressor's median over rows (CUDA events), peak memory; then one
+   more gradient through every compressed leaf: exactly k distinct
+   coordinates, ``corrected == dense + residual`` exactly, and K8f
+   against its plain version on that real gradient within 2^-10 of the
+   sum of |v| per cell;
+3. hold each kernel (K1-K9, K9m, K5i, K1f, K3f, K6f, K8f) against its
+   plain version on the card at the shapes its path gives it (int32 and
+   integer-valued float32: bit-identical; K4, K9 and K9m on every grid
+   their paths launched, K4 on both routes, K9m also against the median of
+   K9's rows bit for bit; K8f at all 9 leaf shapes; K5 and
    K5i also on float32 tables fed non-integer frequencies, bit-identical),
    K5, K3, K3f, K8 and K8f on both residency routes (K8 also on the
    stream's first block in its sorted order, K3 and K5's shared route also
@@ -74,10 +79,12 @@ Phases, any failure of which exits non-zero:
    block from ``fold_depths``),
    K8f, K6 and K6f beside probes of what bounds them (a finest level or a
    flat table that fits L2, all-zero values; for K6/K6f also the adds a
-   warp combine would save);
+   warp combine would save); K4 also at every (P, C) the main path
+   launched (device time, and their sum over the launches) and at the
+   largest, on the direct route too;
 5. drive the main path, the turnstile path, the conservative path and one
    train step once more under torch.profiler for the device's busy and
-   idle share.
+   idle share and the share of its busy time in sorting kernels.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -170,12 +177,15 @@ KERNELS = {
     "sketch_update": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:124"),
     "sketch_query": ("sketch_kernels.cu", "src/repro/kernels/sketch_query.py:47"),
     "hier_update": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:183"),
-    "hier_query": ("sketch_kernels.cu", "src/repro/kernels/hier_query.py:53"),
+    "hier_query": ("hier_query.cuh", "src/repro/kernels/hier_query.py:53"),
     "sketch_update_signed": ("signed_kernels.cu",
                              "src/repro/kernels/sketch_update.py:184"),
     "sketch_query_signed": ("signed_kernels.cu", "src/repro/kernels/sketch_query.py:114"),
     "hier_update_signed": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:319"),
-    "hier_query_signed": ("signed_kernels.cu", "src/repro/kernels/hier_query.py:150"),
+    "hier_query_signed": ("hier_query.cuh", "src/repro/kernels/hier_query.py:150"),
+    # K9 with the median over rows fused (the reference takes it after the
+    # kernel, src/repro/core/countsketch.py:371)
+    "hier_query_signed_median": ("hier_query.cuh", "src/repro/kernels/hier_query.py:150"),
     "sketch_update_conservative": ("conservative_kernels.cu",
                                    "src/repro/kernels/sketch_update_conservative.py:114"),
     # no Pallas kernel computes this fold: the reference's jnp fori_loop
@@ -339,15 +349,16 @@ class Recorded:
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
-        self.calls, self.results = [], []
+        self.calls, self.kwargs, self.results = [], [], []
         self._orig = None
 
     def __enter__(self):
         self._orig = getattr(self.module, self.name)
 
-        def recording(*args):
+        def recording(*args, **kwargs):
             self.calls.append(args)
-            out = self._orig(*args)
+            self.kwargs.append(kwargs)
+            out = self._orig(*args, **kwargs)
             self.results.append(out)
             return out
 
@@ -366,13 +377,18 @@ class Recorded:
             out[key] = out.get(key, 0) + 1
         return out
 
+    def call_at(self, shape):
+        """The arguments and keywords of the first call at (P, C)."""
+        i = next(i for i, call in enumerate(self.calls)
+                 if (call[1].shape[1], call[2].shape[1]) == shape)
+        return self.calls[i], self.kwargs[i]
+
     def most_launched(self):
         """The (P, C) launched most often (the larger grid on a tie), and
-        one call at that shape."""
+        one call's arguments and keywords at that shape."""
         shapes = self.shapes()
-        p, c = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
-        return (p, c), next(call for call in self.calls
-                            if (call[1].shape[1], call[2].shape[1]) == (p, c))
+        shape = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
+        return shape, self.call_at(shape)
 
 
 class Timed:
@@ -556,6 +572,22 @@ def ingest_blocks(target, items, freqs) -> None:
         target.update(items[s : s + BLOCK], freqs[s : s + BLOCK])
 
 
+def answer_rows(hspec, state, items) -> torch.Tensor:
+    """K9's per-row signed estimates of the descent's answer keys
+    (``items`` uint32[K, 2] in schema order): the level-1 grid of their
+    prefixes by their values, whose diagonal child (i, i) is key i,
+    float32[w, K] (robustness filters on top of the median read these)."""
+    level = hspec.n_levels - 1
+    prefixes = hspec.level_items(level - 1, items)
+    values = items[:, list(hspec.base.partition[level])]
+    pp, cp, sp, sc = cs.candidate_signed_partials(hspec, state.params, level,
+                                                  prefixes, values)
+    grid = hq.hier_candidate_query_signed(state.tables[level], pp, cp, sp, sc,
+                                          span=hh.candidate_span(hspec, level))
+    diag = torch.arange(items.shape[0], device=grid.device)
+    return grid[:, diag, diag].to(torch.float32)
+
+
 def turnstile_path(spec, hspec, cs_params, stream, seed):
     items, freqs, kept_items, kept_freqs = turnstile_stream(stream, seed)
     net = int(kept_freqs.sum())
@@ -571,22 +603,28 @@ def turnstile_path(spec, hspec, cs_params, stream, seed):
     def descend(state, use_kernel):
         return cs.find_heavy_hitters(hspec, state, thr, cands, use_kernel=use_kernel)
 
-    with Recorded(hq, "hier_candidate_query_signed") as grids:
+    with Recorded(hq, "hier_candidate_median_signed") as grids:
         _cuda.reset_launches()
         kh = KernelHierarchy(hspec, cs_params, block_b=BLOCK, mode="signed")
         ks = KernelSketch(spec, cs_params, block_b=BLOCK, mode="signed")
         _, t_hier = wall(lambda: ingest_blocks(kh, items, freqs))
         _, t_flat = wall(lambda: ingest_blocks(ks, items, freqs))
         descend(kh.cs_state(), True)                 # warm-up: first launches
+        n_warm = len(grids.calls)
         hh_k, t_desc = wall(lambda: descend(kh.cs_state(), True))
+        rows_k, t_rows = wall(lambda: answer_rows(hspec, kh.cs_state(), hh_k[0]))
         est_k, t_query = wall(lambda: ks.query(queries))
         launches = dict(_cuda.LAUNCHES)
-    log(f"turnstile path launches: {launches}; K9 grid shapes (P, C): {grids.shapes()}")
+    log(f"turnstile path launches: {launches}; K9m grid shapes (P, C): {grids.shapes()}")
     for name, kid in (("sketch_update_signed", "K6"), ("sketch_query_signed", "K7"),
-                      ("hier_update_signed", "K8"), ("hier_query_signed", "K9")):
+                      ("hier_update_signed", "K8"), ("hier_query_signed_median", "K9m"),
+                      ("hier_query_signed", "K9")):
         check(launches[name] > 0, f"{kid} ({name}) launched on the turnstile path")
-    check(len(grids.calls) == launches["hier_query_signed"],
-          "every K9 call of the turnstile path was recorded")
+    check(len(grids.calls) == launches["hier_query_signed_median"] == 2 * n_warm,
+          "every K9m call of the turnstile path was recorded, the same grids in both "
+          "descents")
+    check(torch.equal(cs.median_rows(rows_k).cpu(), torch.from_numpy(hh_k[1])),
+          "the median of K9's rows of each answer key equals its descent estimate")
 
     # deletion cancels exactly: the tables are those of the kept half alone
     kept_h = KernelHierarchy(hspec, cs_params, block_b=BLOCK, mode="signed")
@@ -640,7 +678,8 @@ def turnstile_path(spec, hspec, cs_params, stream, seed):
            "precision": hits / len(found) if found else None,
            "hier_ingest_s": t_hier, "hier_ingest_rows_per_s": items.shape[0] / t_hier,
            "flat_ingest_s": t_flat, "flat_ingest_rows_per_s": items.shape[0] / t_flat,
-           "descent_ms": t_desc * 1e3, "query65536_ms": t_query * 1e3,
+           "descent_ms": t_desc * 1e3, "descent_launches": n_warm,
+           "answer_rows_ms": t_rows * 1e3, "query65536_ms": t_query * 1e3,
            "plain_ingest_s": t_plain, "plain_descent_ms": t_desc_plain * 1e3}
     del plain_h, plain_f
     return kh, ks, (items, freqs, queries), launches, grids, e2e
@@ -836,18 +875,24 @@ def training_path(seed):
     state, t_init = wall(lambda: tl.init_train_state(cfg, tcfg, gen, DEVICE))
     with (Timed(tfm, "loss_fn") as loss, Timed(tl, "compress_decompress") as comp,
           Timed(opt, "apply_updates") as optim, Timed(tl.ngram, "ngram_items") as grams,
-          Timed(tl, "sketch_update") as fold):
+          Timed(tl, "sketch_update") as fold, Timed(cs, "median_rows") as med):
         _cuda.reset_launches()
         (state, hist), t_train = wall(lambda: tl.train(
             cfg, tcfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, state, log_every=1))
         launches = dict(_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     split = step_split(loss, comp, optim, grams, fold)
+    per_step = len(med.events) // TRAIN_STEPS
+    check(per_step * TRAIN_STEPS == len(med.events),
+          "the compressor takes the same medians every step")
+    median_ms = [sum(a.elapsed_time(b) for a, b in med.events[i * per_step:(i + 1) * per_step])
+                 for i in range(TRAIN_STEPS)]
     comps = [(path, c) for path, c in tr.flatten(state["compression"].compressors)
              if c is not None]
     log(f"training path launches: {launches}")
     log(f"losses {hist['loss']}; step seconds {hist['step_time_s']}")
     log(f"step split (ms): {split}")
+    log(f"the compressor's median_rows: {per_step} calls, {median_ms} ms a step")
     check(len(hist["loss"]) == TRAIN_STEPS and all(np.isfinite(hist["loss"])),
           "every loss is finite")
     check(launches["hier_update_signed_f32"] == len(comps) * TRAIN_STEPS > 0,
@@ -872,7 +917,8 @@ def training_path(seed):
            "losses": hist["loss"], "step_time_s": hist["step_time_s"],
            "tokens_per_s": TRAIN_STEPS * tokens / sum(hist["step_time_s"]),
            "tokens_per_s_after_first": len(steady) * tokens / sum(steady),
-           "step_split_ms": split, "init_s": t_init, "train_s": t_train,
+           "step_split_ms": split, "median_ms_per_step": median_ms,
+           "median_calls_per_step": per_step, "init_s": t_init, "train_s": t_train,
            "peak_memory_gb": peak / 1e9}
     return cfg, tcfg, state, launches, e2e
 
@@ -1026,16 +1072,47 @@ class KernelRows:
         self.rows.append(self.measure(name, symbol, **kw))
 
 
-def grid_replay_err(calls, kernel, plain) -> float:
+def grid_replay_err(grids, kernel, plain) -> float:
     """Max |err| of the kernel against its plain version over every
-    recorded grid call of a path."""
-    return max(max_abs_err(kernel(*call), plain(*call)) for call in calls)
+    recorded grid call of a path (the kernel with the call's keywords, the
+    plain version without)."""
+    return max(max_abs_err(kernel(*call, **kw), plain(*call))
+               for call, kw in zip(grids.calls, grids.kwargs))
 
 
 def grid_shape_note(grids, p, c) -> str:
     shapes = grids.shapes()
     return (f"P={p} C={c}; {shapes[(p, c)]} of {len(grids.calls)} launches; all (P, C): "
             + ", ".join(f"{a}x{b}:{n}" for (a, b), n in sorted(shapes.items())))
+
+
+def grid_touched(view, pp, cp) -> int:
+    """The distinct cells a candidate grid reads."""
+    w = view.shape[0]
+    cells = (torch.arange(w, device=view.device)[:, None] * view.stride(0)
+             + (pp[:, :, None] + cp[:, None, :]).reshape(w, -1))
+    return int(torch.unique(cells).numel())
+
+
+class DirectRoute:
+    """The query kernels' direct route while installed (K4, K9, K9m): the
+    route rule (``hier_query.query_geometry``) never stages a window."""
+
+    def __enter__(self):
+        self._orig = hq.query_geometry
+        hq.query_geometry = lambda *args, **kw: hq.QueryGeometry(0, hq.THREADS, 0)
+        return self
+
+    def __exit__(self, *exc):
+        hq.query_geometry = self._orig
+
+
+def query_route(call, kw) -> str:
+    """The route the rule picks for a recorded grid call."""
+    view, pp, cp = call[:3]
+    g = hq.query_geometry(view.shape[0], pp.shape[1], cp.shape[1], kw.get("span"),
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    return "window" if g.span else "direct"
 
 
 def top_source_rows(items) -> int:
@@ -1126,20 +1203,56 @@ def kernel_rows(kr, hspec, eng, ks, stream, grids):
     del scratch, kh, chunks, flat, f_all, hchunks, hflat, hf_all
 
     # K4: every grid the main path launched, each held against the plain
-    # version; timed at the (P, C) it launched most often -- the descent
-    # chunks each level's grid into max_batch // C prefixes per launch
-    err = grid_replay_err(grids.calls, hq.hier_candidate_query, hq.hier_candidate_query_ref)
-    (p, c), (view, pp, cp) = grids.most_launched()
+    # version on the rule's route and on the direct route; timed at the
+    # (P, C) it launched most often (the descent chunks each level's grid
+    # into max_batch // C prefixes a launch) and at the largest, and on the
+    # device at every (P, C) it launched
+    err = grid_replay_err(grids, hq.hier_candidate_query, hq.hier_candidate_query_ref)
+    with DirectRoute():
+        err = max(err, grid_replay_err(grids, hq.hier_candidate_query,
+                                       hq.hier_candidate_query_ref))
+
+    def k4(call, kw):
+        return lambda: hq.hier_candidate_query(*call, **kw)
+
+    def k4_bytes(view, pp, cp):
+        w, p, c = view.shape[0], pp.shape[1], cp.shape[1]
+        return 4 * w * (p + c) + 4 * p * c + 4 * grid_touched(view, pp, cp)
+
+    (p, c), (call, kw) = grids.most_launched()
+    view, pp, cp = call
     w = view.shape[0]
-    cells = (torch.arange(w, device=dev)[:, None] * view.stride(0)
-             + (pp[:, :, None] + cp[:, None, :]).reshape(w, -1))
-    touched = int(torch.unique(cells).numel())
-    del cells
-    kr.add("hier_query", "sk_hier_query_kernel", err=err,
-           call=lambda: hq.hier_candidate_query(view, pp, cp),
-           plain=lambda: hq.hier_candidate_query_ref(view, pp, cp), library=None,
-           n_bytes=4 * w * (p + c) + 4 * p * c + 4 * touched, n_ops=3 * w * p * c,
-           shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
+    row = kr.measure("hier_query", "sk_hier_query_kernel", err=err, call=k4(call, kw),
+                     plain=lambda: hq.hier_candidate_query_ref(*call), library=None,
+                     n_bytes=k4_bytes(view, pp, cp), n_ops=3 * w * p * c,
+                     shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
+    with DirectRoute():
+        row["direct_route_ms"] = cold_ms(k4(call, kw), 100, kr.evict)
+    by_shape = {}
+    for (sp_, sc_), n in sorted(grids.shapes().items()):
+        a, k = grids.call_at((sp_, sc_))
+        by_shape[f"{sp_}x{sc_}"] = {
+            "launches": n, "route": query_route(a, k),
+            "device_ms": kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20, kr.evict)}
+    row["by_shape"] = by_shape
+    row["launches_x_device_ms"] = sum(e["launches"] * e["device_ms"]
+                                      for e in by_shape.values() if e["device_ms"])
+    big = max(grids.shapes(), key=lambda s_: s_[0] * s_[1])
+    a, k = grids.call_at(big)
+    largest = {"shape": f"{big[0]}x{big[1]}", "route": query_route(a, k),
+               "ms": cold_ms(k4(a, k), 50, kr.evict),
+               "device_ms": kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20, kr.evict),
+               "plain_ms": cold_ms(lambda: hq.hier_candidate_query_ref(*a), 5, kr.evict),
+               "bound_ms": bound_ms(k4_bytes(*a), 3 * w * big[0] * big[1])[0]}
+    with DirectRoute():
+        largest["direct_route_ms"] = cold_ms(k4(a, k), 50, kr.evict)
+        largest["direct_device_ms"] = kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20,
+                                                       kr.evict)
+    row["largest"] = largest
+    log(f"K4 by (P, C): {by_shape}; sum of launches x device ms "
+        f"{row['launches_x_device_ms']:.5f}; direct route {row['direct_route_ms']:.5f} ms; "
+        f"largest {largest}")
+    kr.rows.append(row)
 
     # K1 / K2: the flat sketch's block fold and a block of point queries
     plan, flat_table = ks.plan, ks.table
@@ -1297,22 +1410,35 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
     kr.rows.append(row)
     del scratch, chunks, flat, vals, schunks, sflat, svals
 
-    # K9: every grid the signed descent launched, each held against the
-    # plain version; timed at the (P, C) it launched most often
-    err = grid_replay_err(grids.calls, hq.hier_candidate_query_signed,
-                          hq.hier_candidate_query_signed_ref)
-    (p, c), (view, pp, cp, sp, sc) = grids.most_launched()
+    # K9m: every grid the signed descent launched, held against its plain
+    # version and, bit for bit, against median_rows of K9's rows on the same
+    # grid; K9 against its plain version there; both timed at the (P, C)
+    # launched most often
+    err9 = grid_replay_err(grids, hq.hier_candidate_query_signed,
+                           hq.hier_candidate_query_signed_ref)
+    err9m = grid_replay_err(grids, hq.hier_candidate_median_signed,
+                            hq.hier_candidate_median_signed_ref)
+    for call, kw in zip(grids.calls, grids.kwargs):
+        rows = hq.hier_candidate_query_signed(*call, **kw)
+        check(torch.equal(hq.hier_candidate_median_signed(*call, **kw).view(torch.int32),
+                          cs.median_rows(rows).view(torch.int32)),
+              "K9m equals median_rows of K9's rows bit for bit on every descent grid")
+    del rows
+    (p, c), (call, kw) = grids.most_launched()
+    view, pp, cp, sp, sc = call
     w = view.shape[0]
-    cells = (torch.arange(w, device=dev)[:, None] * view.stride(0)
-             + (pp[:, :, None] + cp[:, None, :]).reshape(w, -1))
-    touched = int(torch.unique(cells).numel())
-    del cells
-    kr.add("hier_query_signed", "sk_hier_query_signed_kernel", err=err,
-           call=lambda: hq.hier_candidate_query_signed(view, pp, cp, sp, sc),
-           plain=lambda: hq.hier_candidate_query_signed_ref(view, pp, cp, sp, sc),
-           library=None,
+    touched = grid_touched(view, pp, cp)
+    shape = f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c)
+    kr.add("hier_query_signed", "sk_hier_query_signed_kernel", err=err9,
+           call=lambda: hq.hier_candidate_query_signed(*call, **kw),
+           plain=lambda: hq.hier_candidate_query_signed_ref(*call), library=None,
            n_bytes=8 * w * (p + c) + 4 * w * p * c + 4 * touched, n_ops=4 * w * p * c,
-           shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
+           shape=shape + "; launched on the path by the answer's per-row read")
+    kr.add("hier_query_signed_median", "sk_hier_query_signed_median_kernel", err=err9m,
+           call=lambda: hq.hier_candidate_median_signed(*call, **kw),
+           plain=lambda: hq.hier_candidate_median_signed_ref(*call), library=None,
+           n_bytes=8 * w * (p + c) + 4 * p * c + 4 * touched,
+           n_ops=(4 * w + w * (w - 1)) * p * c, shape=shape)
 
     # K6 / K7: the signed flat sketch's block fold and a block of point queries
     plan, flat_table = ks.plan, ks.table
@@ -1711,7 +1837,8 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
 
 def busy_share(run) -> dict:
     """Run ``run`` under torch.profiler: the device's busy and idle share of
-    its wall time, and the kernels that take the device time."""
+    its wall time, the share of the busy time in sorting kernels, and the
+    kernels that take the device time."""
     _, secs, kernels = device_kernels(run)
     busy = sum(us for _, us in kernels) / 1e6
     by_name = {}
@@ -1719,8 +1846,10 @@ def busy_share(run) -> dict:
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + us, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    sort = sum(us for name, us in kernels if "sort" in name.lower()) / 1e6
     return {"wall_s": secs, "device_busy_s": busy,
             "idle_share": 1 - busy / secs if secs else None,
+            "sort_s": sort, "sort_share_of_busy": sort / busy if busy else None,
             "top_kernels": [[name[:80], tot / 1e3, n] for name, (tot, n) in top]}
 
 
@@ -1858,7 +1987,8 @@ def main(argv=None) -> int:
     kr = KernelRows({**main_launches,
                      "sketch_update": flat_launches["sketch_update"],
                      "sketch_query": flat_launches["sketch_query"],
-                     **{k: v for k, v in turn_launches.items() if k.endswith("_signed")},
+                     **{k: v for k, v in turn_launches.items()
+                        if k.endswith(("_signed", "_signed_median"))},
                      "conservative_fold": cons_launches["conservative_fold"],
                      "sketch_update_conservative": (
                          acc_launches["sketch_update_conservative"]

@@ -20,14 +20,17 @@ rows, computed as ``jnp.median`` does (:func:`median_rows`).
 This module is the plain path and keeps the reference's arithmetic: signs
 multiply values in float32 and the product is cast to the table's dtype
 (exact for |value| < 2^24).  One exception: :func:`hier_fold_tables` folds
-float32 tables on the card with K8f, in one launch for all levels.  The kernels (``kernels/ops.py``
-``mode="signed"``, K6-K9) multiply in int32 and are held to the same
-results below 2^24.  Hash params are int64 tensors, as in core/sketch.py;
-a torch generator cannot reproduce the reference's ``jax.random`` draw, so
-shared params cross as arrays (``repro_torch.interop``).
+float32 tables on the card with K8f, in one launch for all levels.  The
+kernels (``kernels/ops.py`` ``mode="signed"``, K6-K9) multiply in int32
+and are held to the same results below 2^24; K9m, the signed descent's
+query, also takes the median over rows in its launch.  Hash params are
+int64 tensors, as in core/sketch.py; a torch generator cannot reproduce
+the reference's ``jax.random`` draw, so shared params cross as arrays
+(``repro_torch.interop``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,17 +91,23 @@ def init_state(spec: sk.SketchSpec, params, dtype=torch.float32,
 def median_rows(rows: torch.Tensor) -> torch.Tensor:
     """Median over axis 0 in float32, as ``jnp.median`` computes it.
 
-    Rows are cast to float32 first (jnp promotes int32 before the median),
-    sorted, and for even w the two middle rows are averaged as
-    ``(a + b) * 0.5`` in float32.  ``torch.median`` would return the lower
-    middle row instead.  A column that holds a NaN has median NaN, as in
-    ``jnp.median``: the sort puts NaN last, so the last sorted row marks
-    those columns.
+    Rows are cast to float32 first (jnp promotes int32 before the median)
+    and put in order by an odd-even transposition network of
+    ``torch.minimum`` / ``torch.maximum`` (w rounds of compare-exchanges of
+    neighbouring rows, which sorts any w); the two middle rows are averaged
+    as ``(a + b) * 0.5`` in float32, as jnp.median does (for odd w they are
+    one row).  ``torch.median`` would return the lower middle row instead.
+    A column that holds a NaN has median NaN, as in ``jnp.median``: min and
+    max both carry NaN, and in a sorting network every input reaches every
+    output.  K9m (``kernels/hier_query.py``) runs the same network in
+    registers.  No sort: nothing but w float32 rows is allocated.
     """
-    x = rows.to(torch.float32).sort(dim=0).values
-    w = x.shape[0]
-    mid = (x[(w - 1) // 2] + x[w // 2]) * 0.5
-    return torch.where(torch.isnan(x[-1]), x[-1], mid)
+    x = list(rows.to(torch.float32).unbind(0))
+    w = len(x)
+    for rnd in range(w):
+        for i in range(rnd % 2, w - 1, 2):
+            x[i], x[i + 1] = torch.minimum(x[i], x[i + 1]), torch.maximum(x[i], x[i + 1])
+    return (x[(w - 1) // 2] + x[w // 2]) * 0.5
 
 
 # --------------------------------------------------------------------------
@@ -393,10 +402,13 @@ def candidate_estimates(
 ) -> np.ndarray:
     """Median signed estimates for every (prefix x value) child: f32[P, C].
 
-    ``use_kernel=True`` routes tables on the card through K9, which takes
-    int32 only and refuses the rest; the default is the plain gather.  Both
-    agree bit for bit on int32 tables.  ``max_batch`` chunks the prefix
-    axis only; a short last chunk is padded with prefix partial 0 (always a
+    ``use_kernel=True`` routes tables on the card through K9m, the signed
+    grid with the median over rows in the same launch, which takes int32
+    only and refuses the rest; the default is the plain gather and
+    :func:`median_rows`.  Both agree bit for bit on int32 tables.  K9m is
+    given the level's last range as its ``span``
+    (``hierarchy.candidate_span``).  ``max_batch`` chunks the prefix axis
+    only; a short last chunk is padded with prefix partial 0 (always a
     valid cell) and sign +1, and sliced off.
     """
     from repro_torch.kernels import hier_query as hq
@@ -405,11 +417,14 @@ def candidate_estimates(
         hspec, state.params, level, np.asarray(prefixes, dtype=np.uint32),
         np.asarray(values, dtype=np.uint32))
     table = state.tables[level]
-    grid = (hq.hier_candidate_query_signed if use_kernel and table.is_cuda
-            else hq.hier_candidate_query_signed_ref)
+    if use_kernel and table.is_cuda:
+        grid = functools.partial(hq.hier_candidate_median_signed,
+                                 span=hh.candidate_span(hspec, level))
+    else:
+        grid = hq.hier_candidate_median_signed_ref
 
     def one(pp_chunk, sp_chunk):
-        return median_rows(grid(table, pp_chunk, cp, sp_chunk, sc)).cpu().numpy()
+        return grid(table, pp_chunk, cp, sp_chunk, sc).cpu().numpy()
 
     p, c = pp.shape[1], cp.shape[1]
     if max_batch is None or p * c <= max_batch:
@@ -439,7 +454,8 @@ def find_heavy_hitters(
 
     The descent prunes on |median|, which is unbiased per level.  Returns
     (items uint32[K, n_modules] in schema order, float32 estimates of the
-    FINEST level) sorted by |estimate| descending.
+    FINEST level) sorted by |estimate| descending.  ``use_kernel`` as in
+    :func:`candidate_estimates`.
     """
     if len(candidates) != hspec.n_levels:
         raise ValueError(

@@ -371,15 +371,22 @@ def candidate_partials(
     return pp, cp
 
 
-def _grid_fns(table: torch.Tensor, use_kernel: bool):
+def _grid_fns(table: torch.Tensor, use_kernel: bool, span: Optional[int]):
     """(flat, batched) grid evaluators: the K4 wrappers for a table on the
-    card when asked for (they refuse what K4 cannot take), else the plain
-    versions (any dtype)."""
+    card when asked for (they refuse what K4 cannot take), given ``span``
+    for their window route, else the plain versions (any dtype)."""
     from repro_torch.kernels import hier_query as hq
 
     if use_kernel and table.is_cuda:
-        return hq.hier_candidate_query, hq.hier_candidate_query_batched
+        return (functools.partial(hq.hier_candidate_query, span=span),
+                functools.partial(hq.hier_candidate_query_batched, span=span))
     return hq.hier_candidate_query_ref, hq.hier_candidate_query_batched_ref
+
+
+def candidate_span(hspec: HierarchySpec, level: int) -> int:
+    """The query kernels' ``span`` at ``level`` (K4, K9m): the level's last
+    range, which every child partial is below (their window route)."""
+    return int(hspec.levels[level].ranges[-1])
 
 
 def candidate_estimates(
@@ -396,7 +403,8 @@ def candidate_estimates(
 
     ``use_kernel=True`` routes tables on the card through K4, which takes
     int32 only and refuses the rest; the default is the plain gather.  Both
-    agree bit for bit.  ``max_batch`` bounds the
+    agree bit for bit.  K4 is given the level's last range as its ``span``
+    (:func:`candidate_span`).  ``max_batch`` bounds the
     per-call P*C working set: the partials are computed ONCE, then only
     the prefix axis is chunked; a short last chunk is padded with prefix
     partial 0 (always a valid cell) and sliced off.
@@ -405,7 +413,7 @@ def candidate_estimates(
                                 np.asarray(prefixes, dtype=np.uint32),
                                 np.asarray(values, dtype=np.uint32))
     table = state.states[level].table
-    one, _ = _grid_fns(table, use_kernel)
+    one, _ = _grid_fns(table, use_kernel, candidate_span(hspec, level))
 
     p, c = pp.shape[1], cp.shape[1]
     if max_batch is None or p * c <= max_batch:
@@ -439,7 +447,7 @@ def find_heavy_hitters(
     consider for group j.  No false negatives for any key whose group
     values appear in the candidate sets.  Returns (items uint32[K,
     n_modules] in schema module order, estimates int64[K]) sorted by
-    estimate, descending.
+    estimate, descending.  ``use_kernel`` as in :func:`candidate_estimates`.
     """
     if len(candidates) != hspec.n_levels:
         raise ValueError(
@@ -489,7 +497,8 @@ def batched_candidate_estimates(
     The prefix partials are hashed ONCE over the concatenated prefixes,
     padded to a common P_max with prefix partial 0 (sliced off), and the
     whole [Q, P_max, C] grid is evaluated in one launch.  ``max_batch``
-    chunks the request axis.
+    chunks the request axis; ``use_kernel`` as in
+    :func:`candidate_estimates`.
     """
     if not prefix_sets:
         return []
@@ -504,7 +513,7 @@ def batched_candidate_estimates(
     nq, p_max, c = len(counts), max(counts), int(cp.shape[1])
 
     table = state.states[level].table
-    _, batched = _grid_fns(table, use_kernel)
+    _, batched = _grid_fns(table, use_kernel, candidate_span(hspec, level))
 
     # per-request column blocks, padded to the common P_max
     blocks, off = [], 0
@@ -544,7 +553,8 @@ def batched_find_heavy_hitters(
     Request q receives exactly ``find_heavy_hitters(..., thresholds[q],
     candidates)``, but the per-level grids of all still-active requests are
     evaluated together.  A request whose prefix set empties retires early
-    with the empty result, same as the serial descent.
+    with the empty result, same as the serial descent.  ``use_kernel`` as
+    in :func:`candidate_estimates`.
     """
     if len(candidates) != hspec.n_levels:
         raise ValueError(

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sketch_kernels.cu", "signed_kernels.cu", "conservative_kernels.cu")
-HEADERS = ("hashes.cuh", "hier_fold.cuh")
+HEADERS = ("hashes.cuh", "hier_fold.cuh", "hier_query.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -39,7 +39,7 @@ MAX_LEVELS = 16
 LAUNCHES: Dict[str, int] = {
     "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0,
     "sketch_update_signed": 0, "sketch_query_signed": 0,
-    "hier_update_signed": 0, "hier_query_signed": 0,
+    "hier_update_signed": 0, "hier_query_signed": 0, "hier_query_signed_median": 0,
     "sketch_update_conservative": 0, "conservative_fold": 0,
     "sketch_update_f32": 0, "hier_update_f32": 0,
     "sketch_update_signed_f32": 0, "hier_update_signed_f32": 0}
@@ -188,7 +188,7 @@ def _declare(lib) -> None:
         "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64, vp],
         "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64,
                                vp],
-        "sk_hier_query": [vp, i64, i32, vp, i64, vp, i64, vp, vp],
+        "sk_hier_query": [vp, i64, i64, i32, vp, i64, vp, i64, i64, i64, i64, vp, vp],
         "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_update_signed_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, vp],
@@ -196,7 +196,10 @@ def _declare(lib) -> None:
                                   i32, i64, i64, vp],
         "sk_hier_update_signed_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp,
                                       u32, i32, i64, i64, vp],
-        "sk_hier_query_signed": [vp, i64, i32, vp, vp, i64, vp, vp, i64, vp, vp],
+        "sk_hier_query_signed": [vp, i64, i64, i32, vp, vp, i64, vp, vp, i64, i64, i64, i64,
+                                 vp, vp],
+        "sk_hier_query_signed_median": [vp, i64, i64, i32, vp, vp, i64, vp, vp, i64, i64, i64,
+                                        i64, vp, vp],
         "sk_conservative_update_i32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
         "sk_conservative_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
         "sk_conservative_fold_i32": [vp, vp, i64, i32, vp],
@@ -220,6 +223,12 @@ def library():
         return _lib
 
 
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the launch rules' card)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -237,8 +246,8 @@ def require(cond: bool, msg: str) -> None:
 def require_table_dtype(table: torch.Tensor, kernel: str,
                         dtypes=(torch.int32,)) -> None:
     """The kernel's table types: int32 and float32 for the folds (K1, K3,
-    K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K9), as the
-    reference's query kernels."""
+    K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K9, K9m), as
+    the reference's query kernels."""
     require(table.dtype in dtypes,
             f"{kernel}: the CUDA kernel takes "
             f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)} "

@@ -1,6 +1,7 @@
-// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K6f,
-// K8f), with a plain C interface for ctypes.  K8's body, shared with K3,
-// lives in hier_fold.cuh.  Built beside sketch_kernels.cu into
+// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K9m,
+// K6f, K8f), with a plain C interface for ctypes.  K8's body, shared with
+// K3, lives in hier_fold.cuh; K9's and K9m's, shared with K4, in
+// hier_query.cuh.  Built beside sketch_kernels.cu into
 // one shared library by repro_torch/kernels/_cuda.py:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
@@ -18,8 +19,9 @@
 // applied to an int32 value in two's complement;
 // an int32 atomicAdd is exact and two's-complement addition associative, so
 // any order of atomics gives the jnp scatter's table, wraparound included.
-// The median over rows stays with the caller, as in the reference: K7 and
-// K9 write the signed rows.
+// K7 and K9 write the signed rows and leave the median over rows to the
+// caller, as the reference's kernels do; K9m, the descent's query, takes the
+// median in registers (hier_query.cuh).
 //
 // The folds K6 and K8 are templates on the table type.  On int32 tables the
 // frequencies are int32 of either sign.  On float32 tables (K6f, K8f: the
@@ -29,7 +31,7 @@
 // a float atomicAdd: any order of them equals the plain version bit for bit
 // while every cell's partial sums are integers below 2^24, and agrees within
 // float32 rounding otherwise (the reference's contract, hier_update.py:35-38).
-// K7 and K9 read int32 tables only, as the reference's query kernels do.
+// K7, K9 and K9m read int32 tables only, as the reference's query kernels do.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype); sign
 // partials float32 +-1.
@@ -40,6 +42,7 @@
 
 #include "hashes.cuh"
 #include "hier_fold.cuh"
+#include "hier_query.cuh"
 
 namespace {
 
@@ -137,33 +140,6 @@ __global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
   out[k * n + b] = sk_apply_sign(table[k * h_pad + idx], (bits >> (plan.n_groups - 1)) & 1u);
 }
 
-// K9 replaces src/repro/kernels/hier_query.py `hier_candidate_query_signed`
-// (`_hier_kernel_signed`).  out[k, p, c] = table[k*row_stride + pp[k, p] +
-// cp[k, c]] * (int)sp[k, p] * (int)sc[k, c], one thread per (row k, p, c)
-// lane: gridDim.y = w, x over the P x C lanes.  `table` may be a level view
-// of the concatenated hierarchy table (base offset folded into the pointer,
-// rows `row_stride` apart): the TPU wrapper's per-launch pad of the level
-// (a 268 MB copy at 4096^2 cells) is gone.
-// Bound: one 4-byte read per lane, from a window of one row per prefix, and
-// the coalesced int32 [w, P, C] write.  The design never materialises the
-// key grid; the sign product is two float loads and an integer multiply.
-__global__ void sk_hier_query_signed_kernel(const int32_t* __restrict__ table,
-                                            int64_t row_stride,
-                                            const int64_t* __restrict__ pp,
-                                            const float* __restrict__ sp, int64_t P,
-                                            const int64_t* __restrict__ cp,
-                                            const float* __restrict__ sc, int64_t C,
-                                            int32_t* __restrict__ out) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = blockIdx.y;
-  if (lane >= P * C) return;
-  const int64_t p = lane / C;
-  const int64_t c = lane - p * C;
-  const int32_t v = table[k * row_stride + pp[k * P + p] + cp[k * C + c]];
-  const int32_t s = (int32_t)sp[k * P + p] * (int32_t)sc[k * C + c];
-  out[k * P * C + lane] = (int32_t)((uint32_t)v * (uint32_t)s);
-}
-
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <typename T>
@@ -230,14 +206,22 @@ int sk_hier_update_signed_f32(const IndexPlanC* plan, const LevelsC* levels, flo
                                                 smem, stream);
 }
 
-int sk_hier_query_signed(const int32_t* table, int64_t row_stride, int32_t w,
+int sk_hier_query_signed(const int32_t* table, int64_t row_stride, int64_t cols, int32_t w,
                          const int64_t* pp, const float* sp, int64_t P, const int64_t* cp,
-                         const float* sc, int64_t C, int32_t* out, void* stream) {
-  if (P <= 0 || C <= 0) return 0;
-  dim3 grid(blocks_for(P * C), (unsigned)w);
-  sk_hier_query_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      table, row_stride, pp, sp, P, cp, sc, C, out);
-  return (int)cudaGetLastError();
+                         const float* sc, int64_t C, int64_t span, int64_t c_tile,
+                         int64_t smem, int32_t* out, void* stream) {
+  const sk_query::QueryArgs a{table, row_stride, cols, w, pp, sp, P, cp, sc, C,
+                              span, 0, c_tile, 0, out};
+  return sk_query::launch_hier_query<sk_query::kOutRows>(a, smem, stream);
+}
+
+int sk_hier_query_signed_median(const int32_t* table, int64_t row_stride, int64_t cols,
+                                int32_t w, const int64_t* pp, const float* sp, int64_t P,
+                                const int64_t* cp, const float* sc, int64_t C, int64_t span,
+                                int64_t c_tile, int64_t smem, float* out, void* stream) {
+  const sk_query::QueryArgs a{table, row_stride, cols, w, pp, sp, P, cp, sc, C,
+                              span, 0, c_tile, 0, out};
+  return sk_query::launch_hier_query<sk_query::kOutMedian>(a, smem, stream);
 }
 
 }  // extern "C"

@@ -35,6 +35,7 @@
 
 #include "hashes.cuh"
 #include "hier_fold.cuh"
+#include "hier_query.cuh"
 
 namespace {
 
@@ -85,31 +86,6 @@ __global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
     best = min(best, table[k * h_pad + idx]);
   }
   out[b] = best;
-}
-
-// K4 replaces src/repro/kernels/hier_query.py `hier_candidate_query`
-// (`_hier_kernel`) and, with Q requests flattened onto the prefix axis,
-// `hier_candidate_query_batched`.  out[p, c] = min_k table[k*row_stride +
-// pp[k, p] + cp[k, c]], one thread per (p, c) lane.  `table` may be a level
-// view of the concatenated hierarchy table: its base offset is folded into
-// the pointer and rows are `row_stride` apart, so no level is copied.
-// Bound: w random 4-byte reads per lane from a level table larger than L2
-// (the partials are small and cached).  The design never materialises the
-// P x C key grid or the [w, P*C] per-row estimates.
-__global__ void sk_hier_query_kernel(const int32_t* __restrict__ table, int64_t row_stride,
-                                     int32_t w, const int64_t* __restrict__ pp, int64_t P,
-                                     const int64_t* __restrict__ cp, int64_t C,
-                                     int32_t* __restrict__ out) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= P * C) return;
-  const int64_t p = lane / C;
-  const int64_t c = lane - p * C;
-  int32_t best = INT_MAX;
-  for (int64_t k = 0; k < w; ++k) {
-    const int64_t cell = pp[k * P + p] + cp[k * C + c];
-    best = min(best, table[k * row_stride + cell]);
-  }
-  out[lane] = best;
 }
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -168,12 +144,12 @@ int sk_hier_update_f32(const IndexPlanC* plan, const LevelsC* levels, float* tab
                                                  span_tiles, smem, stream);
 }
 
-int sk_hier_query(const int32_t* table, int64_t row_stride, int32_t w, const int64_t* pp,
-                  int64_t P, const int64_t* cp, int64_t C, int32_t* out, void* stream) {
-  if (P <= 0 || C <= 0) return 0;
-  sk_hier_query_kernel<<<blocks_for(P * C), kThreads, 0, (cudaStream_t)stream>>>(
-      table, row_stride, w, pp, P, cp, C, out);
-  return (int)cudaGetLastError();
+int sk_hier_query(const int32_t* table, int64_t row_stride, int64_t cols, int32_t w,
+                  const int64_t* pp, int64_t P, const int64_t* cp, int64_t C, int64_t span,
+                  int64_t c_tile, int64_t smem, int32_t* out, void* stream) {
+  const sk_query::QueryArgs a{table, row_stride, cols, w, pp, nullptr, P, cp, nullptr, C,
+                              span, 0, c_tile, 0, out};
+  return sk_query::launch_hier_query<sk_query::kOutMin>(a, smem, stream);
 }
 
 }  // extern "C"

@@ -37,7 +37,6 @@ otherwise: the reference's contract (hier_update.py:35-38).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -209,11 +208,6 @@ def fold_geometry(hplan: HierPlan, w: int, n: int, itemsize: int, sms: int,
     return FoldGeometry(tuple(shared), ctas, span, smem)
 
 
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
             freqs: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
             signs: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
@@ -230,7 +224,7 @@ def _launch(hplan: HierPlan, table: torch.Tensor, chunks: torch.Tensor,
                   f"{name}: freqs {tuple(freqs.shape)} do not match {b} rows")
     w, cols = table.shape
     geometry = fold_geometry(hplan, w, b, table.element_size(),
-                             _sm_count(table.device.index))
+                             _cuda.sm_count(table.device.index))
     plan_c = _cuda.plan_struct(hplan.plan)
     levels_c = _cuda.levels_struct(hplan.level_offsets, hplan.level_divs)
     lib = _cuda.library()

@@ -24,16 +24,20 @@ def flatten(tree: Any) -> List[Tuple[Path, Any]]:
     """(path, leaf) pairs in ``jax.tree.flatten``'s order (sorted keys,
     depth first)."""
     out: List[Tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node: Any, path: Path, out: List[Tuple[Path, Any]]) -> None:
+    # A module-level walk, not a closure: a nested function that calls
+    # itself holds its own cell, and that cycle kept every flattened tree's
+    # leaves (a train step's params, gradients and moments) alive until
+    # Python's cyclic collector ran.
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (key,), out)
+    else:
+        out.append((path, node))
 
 
 def leaves(tree: Any) -> List[Any]:

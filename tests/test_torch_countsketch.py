@@ -182,7 +182,7 @@ def test_median_of_rows_near_2_24_matches_reference(w):
         assert float(torch.median(rows, dim=0).values[0]) == 3.0
 
 
-@pytest.mark.parametrize("w", [2, 3, 4, 5])
+@pytest.mark.parametrize("w", range(1, 10))
 def test_median_of_rows_with_nan_and_inf_matches_reference(w):
     """A column that holds a NaN has median NaN, as jnp.median gives it;
     +-inf sort as values (inf - inf in the even-w midpoint is NaN too)."""
@@ -192,9 +192,9 @@ def test_median_of_rows_with_nan_and_inf_matches_reference(w):
     rng = np.random.default_rng(70 + w)
     rows = rng.integers(-50, 50, (w, 40)).astype(np.float32)
     rows[:, :4] = np.resize(example, (w, 4))
-    rows[:, 4] = [inf, -inf, inf, -inf, inf][:w]       # inf and -inf, no NaN
-    rows[:, 5] = [inf, 3, inf, 3, inf][:w]
-    rows[:, 6] = [-inf, -inf, 1, -inf, 2][:w]
+    rows[:, 4] = np.resize([inf, -inf], w)             # inf and -inf, no NaN
+    rows[:, 5] = np.resize([inf, 3], w)
+    rows[:, 6] = np.resize([-inf, -inf, 1, -inf, 2], w)
     for c in range(7, 40):                             # a NaN in some rows
         k = int(rng.integers(0, w + 2))
         if k < w:
@@ -206,6 +206,24 @@ def test_median_of_rows_with_nan_and_inf_matches_reference(w):
         _eq(np.array([nan, nan, inf, 1], np.float32),
             pcs.median_rows(torch.from_numpy(example)))
     _eq(jnp.median(jnp.asarray(rows), axis=0), pcs.median_rows(torch.from_numpy(rows)))
+
+
+@pytest.mark.parametrize("w", range(1, 10))
+def test_median_of_rows_matches_reference_for_every_w(w):
+    """The comparator network gives jnp.median's order statistics and
+    float32 midpoint for odd and even w: int32 rows (cast first, as jnp
+    promotes them) with ties, cells near +-2^24 whose midpoints round, and
+    cells near +-2^31; and float32 rows of mixed signs and zeros."""
+    rng = np.random.default_rng(80 + w)
+    ints = rng.integers(-3, 4, (w, 300)).astype(np.int64)
+    ints[:, 100:200] += (1 << 24) * rng.choice([-1, 1], (w, 100))
+    ints[:, 200:] = rng.integers(-(1 << 31), 1 << 31, (w, 100))
+    ints = ints.astype(np.int32)
+    _eq(jnp.median(jnp.asarray(ints), axis=0), pcs.median_rows(torch.from_numpy(ints)))
+    floats = (rng.standard_normal((w, 300)) * 1e3).astype(np.float32)
+    floats[:, ::5] = 0.0
+    floats[:, 1::7] = -0.0
+    _eq(jnp.median(jnp.asarray(floats), axis=0), pcs.median_rows(torch.from_numpy(floats)))
 
 
 def test_l2estimate_and_merge_match_reference():

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K9, K5i, and the float32 folds K1f, K3f,
-K6f, K8f) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1-K9, K5i, K9m, and the float32 folds K1f,
+K3f, K6f, K8f) against their plain PyTorch versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
 on a machine that has one).  Inputs are made with numpy from a seed.  On
@@ -15,7 +15,9 @@ duplicate keys, zero-frequency rows, level widths that are not tile
 multiples, int32 wraparound, negative (turnstile) frequencies, strided
 level views, and both residency routes of the conservative fold (K5, K5i;
 also on blocks of long and short runs of a few keys, or of one key) and
-of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables.
+of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables;
+the candidate-grid queries (K4, K9, K9m) on both routes for w = 1-9, on
+views whose windows start unaligned.
 """
 import numpy as np
 import pytest
@@ -609,6 +611,134 @@ def test_k9_signed_grid_on_level_views_matches_plain(cuda):
                                        max_batch=max_batch))
 
 
+# --------------------------------------------------------------------------
+# K4, K9, K9m: one query body, on both routes
+# --------------------------------------------------------------------------
+
+GRID_SPAN = 90          # the level's last range: child partials lie below it
+
+
+def _grid_case(w, p, c, seed, device, offset=3, prefixes=600):
+    """A level view whose base lies ``offset`` cells past a 16-byte boundary,
+    so prefix windows start unaligned, of int32 cells near +-2^24 and +-2^31
+    and zeros -- never -2^31, where K9's int32 product wraps and its plain
+    version's float32 one does not (ROADMAP's deliberate difference); prefix
+    partials idx * GRID_SPAN, child partials below GRID_SPAN, +-1 signs."""
+    rng = np.random.default_rng(seed)
+    h = prefixes * GRID_SPAN
+    shape = (w, h + 2 * offset + 8)
+    wide = rng.integers(-(1 << 31) + 1, 1 << 31, shape, dtype=np.int64)
+    near = rng.integers((1 << 24) - 8, (1 << 24) + 8, shape) * rng.choice([-1, 1], shape)
+    cells = np.where(rng.random(shape) < 0.5, wide, near)
+    cells[:, ::7] = 0
+    table = torch.from_numpy(cells.astype(np.int32)).to(device)
+    pp = torch.from_numpy(rng.integers(0, prefixes, (w, p)) * GRID_SPAN).to(device)
+    cp = torch.from_numpy(rng.integers(0, GRID_SPAN, (w, c))).to(device)
+    sp = torch.from_numpy(rng.choice([-1.0, 1.0], (w, p)).astype(np.float32)).to(device)
+    sc = torch.from_numpy(rng.choice([-1.0, 1.0], (w, c)).astype(np.float32)).to(device)
+    return table[:, offset : offset + h], pp, cp, sp, sc
+
+
+def _force_query_route(monkeypatch, w, span):
+    """K4/K9/K9m's route forced: the window route staging ``span`` cells a
+    row in CTAs of 512 candidates, or (span 0) the direct route."""
+    geometry = (hq.QueryGeometry(span, 512, hq.window_bytes(w, span)) if span
+                else hq.QueryGeometry(0, hq.THREADS, 0))
+    monkeypatch.setattr(hq, "query_geometry", lambda *args, **kw: geometry)
+
+
+@pytest.mark.parametrize("route", ["direct", "window"])
+@pytest.mark.parametrize("w", range(1, 10))
+def test_k4_k9_k9m_match_plain_for_every_w_on_both_routes(cuda, monkeypatch, w, route):
+    """w = 1-8 run unrolled, 9 the runtime loop.  The window route stages
+    the level's whole range, then 37 cells a row, so that lanes with a child
+    partial at or past the staged length read global memory; P = 1 and P =
+    2,190 (the main path's widest level-1 grid), and a Q-batched grid."""
+    spans = (GRID_SPAN, 37) if route == "window" else (0,)
+    for p, c, seed in ((1, 5003, 40 + w), (2190, 300, 50 + w)):
+        view, pp, cp, sp, sc = _grid_case(w, p, c, seed, cuda)
+        for span in spans:
+            _force_query_route(monkeypatch, w, span)
+            n0 = dict(_cuda.LAUNCHES)
+            got = hq.hier_candidate_query(view, pp, cp, span=GRID_SPAN)
+            assert torch.equal(got, hq.hier_candidate_query_ref(view, pp, cp))
+            rows = hq.hier_candidate_query_signed(view, pp, cp, sp, sc, span=GRID_SPAN)
+            assert rows.dtype == torch.int32 and rows.shape == (w, p, c)
+            assert torch.equal(rows.to(torch.float32),
+                               hq.hier_candidate_query_signed_ref(view, pp, cp, sp, sc))
+            med = hq.hier_candidate_median_signed(view, pp, cp, sp, sc, span=GRID_SPAN)
+            assert med.dtype == torch.float32 and med.shape == (p, c)
+            assert torch.equal(med.view(torch.int32), cs.median_rows(rows).view(torch.int32))
+            assert torch.equal(med, hq.hier_candidate_median_signed_ref(view, pp, cp, sp, sc))
+            pp3 = torch.stack([pp, pp.flip(1), pp], dim=1)
+            assert torch.equal(hq.hier_candidate_query_batched(view, pp3, cp, span=GRID_SPAN),
+                               hq.hier_candidate_query_batched_ref(view, pp3, cp))
+            for name, n in (("hier_query", 2), ("hier_query_signed", 1),
+                            ("hier_query_signed_median", 1)):
+                assert _cuda.LAUNCHES[name] == n0[name] + n
+
+
+@pytest.mark.parametrize("span", ["level range", None])
+def test_descents_with_and_without_span_equal_plain_on_card(cuda, monkeypatch, span):
+    """The linear descents (serial and Q-batched, on K4) and the signed one
+    (on K9m) with ``span`` passed (the rule takes the window route at these
+    ranges) and without it (the direct route), against the plain descents."""
+    if span is None:
+        monkeypatch.setattr(hh, "candidate_span", lambda *args: None)
+    hspec = _hspec(w=4)
+    params = _signed_params(hspec.levels[-1], 70, cuda)
+    items, freqs = _signed_block(hspec, 3000, 71)
+    cands = [np.unique(items[:, list(g)], axis=0) for g in hspec.base.partition]
+    kh = KernelHierarchy(hspec, params[0], tile_h=128, device=cuda)
+    kh.update(items, np.abs(freqs))
+    plain = hh.update_jit(hspec, hh.init_hierarchy(hspec, params[0], device=cuda), items,
+                          np.abs(freqs))
+    thr = 0.002 * np.abs(freqs).sum()
+    n0 = dict(_cuda.LAUNCHES)
+    got = hh.find_heavy_hitters(hspec, kh.state(), thr, cands, use_kernel=True,
+                                max_batch=4096)
+    want = hh.find_heavy_hitters(hspec, plain, thr, cands, max_batch=4096)
+    assert got[0].shape[0] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    got_b = hh.batched_find_heavy_hitters(hspec, kh.state(), [thr, 2 * thr], cands,
+                                          use_kernel=True)
+    want_b = hh.batched_find_heavy_hitters(hspec, plain, [thr, 2 * thr], cands)
+    for a, b in zip(got_b, want_b):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    ks = KernelHierarchy(hspec, params, tile_h=128, device=cuda, mode="signed")
+    ks.update(items, freqs)
+    splain = cs.hier_update(hspec, cs.init_hierarchy(hspec, params, dtype=torch.int32,
+                                                     device=cuda), items, freqs)
+    got = cs.find_heavy_hitters(hspec, ks.cs_state(), thr, cands, use_kernel=True,
+                                max_batch=4096)
+    want = cs.find_heavy_hitters(hspec, splain, thr, cands, max_batch=4096)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert _cuda.LAUNCHES["hier_query"] > n0["hier_query"]
+    assert _cuda.LAUNCHES["hier_query_signed_median"] > n0["hier_query_signed_median"]
+    assert _cuda.LAUNCHES["hier_query_signed"] == n0["hier_query_signed"]
+
+
+def test_k9m_refuses_a_launch_it_cannot_make(cuda, monkeypatch):
+    """Shared bytes that disagree with the window, and a window above one
+    CTA's shared memory, are refused by the launcher and raised on: nothing
+    falls back to the plain version."""
+    view, pp, cp, sp, sc = _grid_case(4, 3, 700, 60, cuda)
+    n0 = _cuda.LAUNCHES["hier_query_signed_median"]
+    wrong = hq.QueryGeometry(GRID_SPAN, 256, hq.window_bytes(4, GRID_SPAN) + 4)
+    monkeypatch.setattr(hq, "query_geometry", lambda *args, **kw: wrong)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        hq.hier_candidate_median_signed(view, pp, cp, sp, sc, span=GRID_SPAN)
+    too_big = hq.QueryGeometry(20_000, 256, hq.window_bytes(4, 20_000))
+    assert too_big.shared_bytes > 232_448
+    monkeypatch.setattr(hq, "query_geometry", lambda *args, **kw: too_big)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        hq.hier_candidate_median_signed(view, pp, cp, sp, sc, span=20_000)
+    assert _cuda.LAUNCHES["hier_query_signed_median"] == n0
+
+
 def test_signed_float32_folds_launch_and_reads_refuse(cuda):
     """Item 14 is ported: signed float32 tables fold on the card through
     K6f and K8f (no plain fallback), point queries take the plain gather
@@ -667,7 +797,7 @@ def test_signed_path_kernel_equals_plain_on_card(cuda):
     np.testing.assert_array_equal(got[1], want[1])
     assert all(_cuda.LAUNCHES[k] > 0 for k in (
         "sketch_update_signed", "sketch_query_signed", "hier_update_signed",
-        "hier_query_signed"))
+        "hier_query_signed_median"))
 
 
 # --------------------------------------------------------------------------

@@ -405,3 +405,42 @@ def test_training_refusals_name_their_items():
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         ttl.init_train_state(tconfigs.get_reduced("mixtral-8x22b"), ttcfg,
                              torch.Generator(), "cpu")
+
+
+def test_flatten_keeps_no_leaf_alive():
+    """``tree.flatten`` leaves no reference cycle: a flattened tree's leaves
+    are freed by reference counting once nothing refers to them, without
+    Python's cyclic collector (a self-referencing closure once kept a train
+    step's params, gradients and moments alive until it ran)."""
+    import gc
+    import weakref
+
+    gc.disable()
+    try:
+        leaf = torch.zeros(3)
+        ref = weakref.ref(leaf)
+        pairs = tr.flatten({"b": {"c": leaf}, "a": None})
+        assert [path for path, _ in pairs] == [("a",), ("b", "c")]
+        del pairs, leaf
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_train_steps_leave_no_cyclic_garbage():
+    """Two train steps (compression and the n-gram sketch on) create no
+    reference cycles, so every step's tensors are freed as soon as the next
+    step no longer needs them."""
+    import gc
+
+    cfg = tconfigs.get_reduced("starcoder2-7b")
+    tcfg = ttl.TrainConfig(optimizer=topt.OptimizerConfig(lr=1e-3, warmup_steps=0),
+                           compression=tgc.CompressionConfig(enabled=True))
+    state = ttl.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        state, _ = ttl.train(cfg, tcfg, 2, 2, 64, state)
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
