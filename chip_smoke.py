@@ -68,7 +68,9 @@ Phases, any failure of which exits non-zero:
    K5, K3, K3f, K8 and K8f on both residency routes (K8 also on the
    stream's first block in its sorted order, K3 and K5's shared route also
    on the stream's heaviest block: the one whose top source holds the most
-   rows);
+   rows), K1 at every shape its paths launch it (the accuracy path's
+   count-min, equal-sketch and mod-sketch at blocks 0, 7 and 13, the flat
+   path's heaviest block, the training path's bigram fold);
 4. time each kernel, its plain version and the closest single PyTorch
    call with CUDA events, with L2 evicted before each call as the main
    path finds the tables cold; read the kernel's own device time with
@@ -77,9 +79,10 @@ Phases, any failure of which exits non-zero:
    HBM, then D_r dependent steps of the fold's recurrence in registers,
    both latencies measured by a probe kernel; D, D_r and S of each timed
    block from ``fold_depths``),
-   K8f, K6 and K6f beside probes of what bounds them (a finest level or a
-   flat table that fits L2, all-zero values; for K6/K6f also the adds a
-   warp combine would save); K4 also at every (P, C) the main path
+   K8f, K1, K6 and K6f beside probes of what bounds them (a finest level
+   or a flat table that fits L2, all-zero values; for the flat folds also
+   the adds a warp combine would save); K1 also at each of those shapes;
+   K4 also at every (P, C) the main path
    launched (device time, and their sum over the launches) and at the
    largest, on the direct route too;
 5. drive the main path, the turnstile path, the conservative path and one
@@ -157,8 +160,11 @@ POOL = 4096
 # 10x the reference's own "twitter-like" default (streams/synthetic.py)
 STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
               n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)
-# the accuracy path: examples/quickstart.py's table, sample and query sets
+# the accuracy path: examples/quickstart.py's table, sample and query sets;
+# K1 is timed there at blocks ACC_BLOCKS of the stream (block 7's top
+# source holds 47,576 of its 65,536 rows, block 13's 26,715)
 H_ACC, W_ACC, SAMPLE, N_QUERIES = 4096, 5, 0.02, 500
+ACC_BLOCKS = (0, 7, 13)
 # the training path: starcoder2-7b at its published width, depth cut to 2
 # layers (32 would need 56 GB for the float32 Adam moments alone)
 TRAIN_ARCH, TRAIN_LAYERS = "starcoder2-7b", 2
@@ -174,7 +180,7 @@ L2_RANGES = (1024, 1024)
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "sketch_update": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:124"),
+    "sketch_update": ("hier_fold.cuh", "src/repro/kernels/sketch_update.py:124"),
     "sketch_query": ("sketch_kernels.cu", "src/repro/kernels/sketch_query.py:47"),
     "hier_update": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:183"),
     "hier_query": ("hier_query.cuh", "src/repro/kernels/hier_query.py:53"),
@@ -191,7 +197,7 @@ KERNELS = {
     # no Pallas kernel computes this fold: the reference's jnp fori_loop
     "conservative_fold": ("conservative_kernels.cu", "src/repro/core/sketch.py:253"),
     # the float32 table bodies of K1, K3, K6 and K8
-    "sketch_update_f32": ("sketch_kernels.cu", "src/repro/kernels/sketch_update.py:60"),
+    "sketch_update_f32": ("hier_fold.cuh", "src/repro/kernels/sketch_update.py:60"),
     "hier_update_f32": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:161"),
     "sketch_update_signed_f32": ("signed_kernels.cu",
                                  "src/repro/kernels/sketch_update.py:99"),
@@ -329,6 +335,13 @@ def fold_geometry_note(hplan, w: int, n: int, itemsize: int) -> dict:
                          torch.cuda.get_device_properties(0).multi_processor_count)
     return {"levels": ["shared" if on else "global" for on in g.shared],
             "shared_bytes": g.shared_bytes, "ctas": g.ctas, "span_tiles": g.span_tiles}
+
+
+def flat_deal_note(w: int, n: int) -> dict:
+    """The CTAs a row and their span that K1/K1f launch for n keys into w
+    rows on this card (``sketch_update.flat_deal``)."""
+    ctas, span = su.flat_deal(w, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"ctas": ctas, "span_tiles": span}
 
 
 def both_routes_err(fold, plain) -> float:
@@ -694,8 +707,8 @@ def accuracy_path(stream, seed):
     a uniform 2% sample, Thm-3 ranges and Thm-4/5 selection, then each of
     count-min, equal-sketch, mod-sketch and the selected spec built over
     the whole stream linearly (K1) and conservatively (K5) from one draw,
-    and queried (K2).  Returns (the mod-sketch's conservative sketch,
-    launches, e2e)."""
+    and queried (K2).  Returns (the mod-sketch's conservative sketch, the
+    linear sketches by name, launches, e2e)."""
     rng = np.random.default_rng((seed, 13))
     s_items, s_freqs = stream.sample(SAMPLE, rng)
     draw = seeded_draw(seed)
@@ -711,7 +724,7 @@ def accuracy_path(stream, seed):
     qsets = {"top-500": stream.top_k_queries(N_QUERIES),
              "random-500": stream.random_k_queries(N_QUERIES, rng)}
     _cuda.reset_launches()
-    rows, built = {}, {}
+    rows, built, linear = {}, {}, {}
     for name, spec in specs.items():
         params = draw(0, spec)
         lin = KernelSketch(spec, params, block_b=BLOCK)
@@ -734,7 +747,7 @@ def accuracy_path(stream, seed):
         log(f"  {name:13s} " + "  ".join(
             f"{q}: linear {e['linear']:.4f} conservative {e['conservative']:.4f}"
             for q, e in errs.items()) + f"   ({spec.describe()})")
-        built[name] = cons
+        built[name], linear[name] = cons, lin
     launches = dict(_cuda.LAUNCHES)
     log(f"accuracy path launches: {launches}")
     for kname, kid in (("sketch_update", "K1"), ("sketch_update_conservative", "K5"),
@@ -743,7 +756,7 @@ def accuracy_path(stream, seed):
     e2e = {"sample_rows": int(s_items.shape[0]), "sample_mass": int(s_freqs.sum()),
            "choose_s": t_choose, "choice": result.choice, "sigma": result.sigma,
            "mod_ranges": [a, b], "specs": rows}
-    return built["mod-sketch"], launches, e2e
+    return built["mod-sketch"], linear, launches, e2e
 
 
 def conservative_path(spec, params, stream, thr, exact_items, lin_answer, lin_state,
@@ -923,6 +936,13 @@ def training_path(seed):
     return cfg, tcfg, state, launches, e2e
 
 
+def bigram_chunks(cfg, spec, step: int) -> torch.Tensor:
+    """The chunks of the bigrams K1 folds in the training path's ``step``."""
+    data = tl.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = torch.from_numpy(data(step)["tokens"]).to(DEVICE)
+    return spec.schema.module_chunks(tl.ngram.ngram_items(tokens, cfg.sketch_ngrams))
+
+
 def plain_bigram_table(cfg, state) -> torch.Tensor:
     """The training phase's n-gram table rebuilt by K1's plain version on a
     zero [w, h] table: the same steps' batches, bigrams and (q, r), freqs 1."""
@@ -930,12 +950,10 @@ def plain_bigram_table(cfg, state) -> torch.Tensor:
     plan = tl.make_plan(spec)
     q, r = state["sketch_params"]
     table = torch.zeros_like(state["sketch_table"])
-    data = tl.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
     for step in range(TRAIN_STEPS):
-        tokens = torch.from_numpy(data(step)["tokens"]).to(table.device)
-        grams = tl.ngram.ngram_items(tokens, cfg.sketch_ngrams)
-        freqs = torch.ones((grams.shape[0],), dtype=table.dtype, device=table.device)
-        su.sketch_update_ref(plan, table, spec.schema.module_chunks(grams), freqs, q, r)
+        chunks = bigram_chunks(cfg, spec, step)
+        freqs = torch.ones((chunks.shape[0],), dtype=table.dtype, device=table.device)
+        su.sketch_update_ref(plan, table, chunks, freqs, q, r)
     return table
 
 
@@ -1143,6 +1161,90 @@ def k3_block(hspec, hplan, table, blk_items, f, q, r):
     return chunks, flat, f_all, int(torch.unique(flat[f_all != 0]).numel())
 
 
+def k1_cells(plan, table, chunks, f, q, r):
+    """One block's K1/K1f cells: each (row, key)'s column, and for
+    ``index_add_`` the flat cells and values of every (row, key), and the
+    cells the block touches."""
+    w, h_pad = table.shape
+    idx = all_indices(plan, chunks, q, r)
+    flat = (torch.arange(w, device=table.device)[:, None] * h_pad + idx).reshape(-1)
+    f_all = f.to(table.dtype).expand(w, f.shape[0]).reshape(-1)
+    return idx, flat, f_all, int(torch.unique(flat[f_all != 0]).numel())
+
+
+def warp_combinable(idx, f) -> dict:
+    """A flat fold's live (row, key) adds, and how many of them a warp
+    combine would save: the live adds less the distinct (row, warp, cell)
+    they hit.  ``idx`` is int64[w, B], each (row, key)'s column."""
+    w, n = idx.shape
+    warp = torch.arange(n, device=idx.device) // 32
+    cells = (torch.arange(w, device=idx.device)[:, None] * (n // 32 + 1) + warp) \
+        * (int(idx.max()) + 1) + idx
+    live = f != 0
+    adds = w * int(live.sum())
+    return {"live_adds": adds,
+            "warp_combinable_adds": adds - int(torch.unique(cells[:, live]).numel())}
+
+
+def k1_shape(kr, spec, plan, table, chunks, f, q, r, what: str) -> dict:
+    """K1 on one block into a zero table of ``table``'s shape: bit for bit
+    with the plain fold; cold and device ms (L2 evicted), ``index_add_`` of
+    the same cells, the bytes and operations bounds, and the adds a warp
+    combine would save."""
+    w, h_pad = table.shape
+    n = f.shape[0]
+    idx, flat, f_all, touched = k1_cells(plan, table, chunks, f, q, r)
+    zero = torch.zeros_like(table)
+    err = max_abs_err(su.sketch_update(plan, zero.clone(), chunks, f, q, r),
+                      su.sketch_update_ref(plan, zero.clone(), chunks, f, q, r))
+    check(err == 0, f"K1 on {what} bit-identical to its plain version ({err})")
+    scratch = zero.clone()
+
+    def call():
+        su.sketch_update(plan, scratch, chunks, f, q, r)
+
+    return {"w": w, "h_pad": h_pad, "keys": n, **flat_deal_note(w, n), "max_abs_err": err,
+            "ms": cold_ms(call, 100, kr.evict),
+            "device_ms": kernel_device_ms(call, "sk_flat_update_kernel<int", 20, kr.evict),
+            "library_ms": cold_ms(lambda: scratch.view(-1).index_add_(0, flat, f_all), 100,
+                                  kr.evict),
+            "bytes_bound_ms": (key_bytes(spec.schema, n) + nbytes(f) + param_bytes(q, r)
+                               + 8 * touched) / MEM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": (hash_ops(plan, n) + 2 * w * n) / ALU_OPS_PER_S * 1e3,
+            **warp_combinable(idx, f)}
+
+
+def k1_by_shape(kr, stream, acc_sketches, ks, bigram) -> dict:
+    """K1 at the shapes its paths launch it, each block into a zero table:
+    the accuracy path's count-min, equal-sketch and mod-sketch at blocks
+    ACC_BLOCKS of the stream (h = 4,096, w = 5), the flat
+    path's heaviest block (the one whose top source holds the most rows)
+    and the training path's first bigram fold."""
+    dev = torch.device(DEVICE)
+    out = {}
+
+    def block(sketch, b):
+        items = stream.items[b * BLOCK : (b + 1) * BLOCK]
+        f = torch.from_numpy(stream.freqs[b * BLOCK : (b + 1) * BLOCK]).to(dev, torch.int32)
+        chunks = sketch.spec.schema.module_chunks(as_index_tensor(items, dev))
+        what = f"{sketch.spec.describe()} block {b}"
+        row = k1_shape(kr, sketch.spec, sketch.plan, sketch.table, chunks, f,
+                       sketch.params.q, sketch.params.r, what)
+        return {"block": b, "top_source_rows": top_source_rows(items), **row}
+
+    for name in ("count-min", "equal-sketch", "mod-sketch"):
+        for b in ACC_BLOCKS:
+            out[f"accuracy {name} block {b}"] = block(acc_sketches[name], b)
+    hb = heaviest_block(stream.items)
+    out[f"flat heaviest block {hb}"] = block(ks, hb)
+    spec, plan, q, r, chunks, table = bigram
+    ones = torch.ones(chunks.shape[0], dtype=torch.int32, device=dev)
+    out["training bigram step 0"] = k1_shape(kr, spec, plan, table, chunks, ones, q, r,
+                                             "the bigram fold")
+    log("K1 by shape: " + json.dumps(out))
+    return out
+
+
 def kernel_rows(kr, hspec, eng, ks, stream, grids):
     dev = torch.device(DEVICE)
     q, r = ks.params.q, ks.params.r
@@ -1258,21 +1360,23 @@ def kernel_rows(kr, hspec, eng, ks, stream, grids):
     plan, flat_table = ks.plan, ks.table
     fchunks = ks.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
     w, h_pad = flat_table.shape
-    idx = all_indices(plan, fchunks, q, r)
-    flat = (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)
-    f_all = f.expand(w, BLOCK).reshape(-1)
-    touched = int(torch.unique(flat[f_all != 0]).numel())
+    _, flat, f_all, touched = k1_cells(plan, flat_table, fchunks, f, q, r)
     scratch = flat_table.clone()
-    kr.add("sketch_update", "sk_update_kernel",
-           err=max_abs_err(su.sketch_update(plan, flat_table.clone(), fchunks, f, q, r),
-                           su.sketch_update_ref(plan, flat_table.clone(), fchunks, f, q, r)),
-           call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
-           plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-           n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + 8 * touched,
-           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
-           shape=f"B={BLOCK} w={w} h_pad={h_pad}")
+    row = kr.measure(
+        "sketch_update", "sk_flat_update_kernel<int",
+        err=max_abs_err(su.sketch_update(plan, flat_table.clone(), fchunks, f, q, r),
+                        su.sketch_update_ref(plan, flat_table.clone(), fchunks, f, q, r)),
+        call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
+        plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+        n_bytes=key_bytes(ks.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + 8 * touched,
+        n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+        shape=f"B={BLOCK} w={w} h_pad={h_pad}")
+    row["geometry"] = flat_deal_note(w, BLOCK)
+    row["bound_probes"] = flat_probes(kr, ks.spec, plan, scratch, fchunks, f, q, r)
+    log(f"K1 geometry {row['geometry']}; bound probes {row['bound_probes']}")
+    kr.rows.append(row)
     del scratch
 
     rng = np.random.default_rng(2)
@@ -1314,37 +1418,34 @@ def k8_block(hspec, hplan, table, blk_items, f, q, r, s_q, s_r):
     return chunks, flat, vals, int(torch.unique(flat[vals != 0]).numel())
 
 
-def flat_signed_probes(kr, spec, plan, table, chunks, f, q, r, s_q, s_r) -> dict:
-    """What bounds K6/K6f on a block: the same keys, values and params into
-    a flat table that fits L2 (the same schema and partition, ranges cut
-    to L2_RANGES), timed with L2 evicted first and with the table read into
-    L2 first; all-zero values, which skip the hash and the atomics; and the
-    adds a warp combine would save, counted: the live (row, key) adds less
-    the distinct (row, warp, cell) they hit."""
+def flat_probes(kr, spec, plan, table, chunks, f, q, r, signs=()) -> dict:
+    """What bounds a flat fold on a block (K1, K1f; K6, K6f with ``signs``,
+    their (s_q, s_r)): the same keys, values and params into a flat table
+    that fits L2 (the same schema and partition, ranges cut to L2_RANGES),
+    timed with L2 evicted first and with the table read into L2 first;
+    all-zero values, which skip the hash and the atomics; and the adds a
+    warp combine would save, counted: the live (row, key) adds less the
+    distinct (row, warp, cell) they hit."""
     dev, (w, h_pad) = table.device, table.shape
+
+    def fold(p, t, v):
+        if signs:
+            return su.sketch_update_signed(p, t, chunks, v, q, r, *signs)
+        return su.sketch_update(p, t, chunks, v, q, r)
+
     small = sk.mod_sketch_spec(spec.schema, spec.partition, L2_RANGES, w)
     small_plan = make_plan(small)
     small_table = torch.zeros((w, su.padded_table_size(small.table_size, 512)),
                               dtype=table.dtype, device=dev)
     zeros = torch.zeros_like(f)
-    idx = all_indices(plan, chunks, q, r)
-    n_warps = -(-f.shape[0] // 32)
-    warp = torch.arange(f.shape[0], device=dev) // 32
-    cells = (torch.arange(w, device=dev)[:, None] * n_warps + warp) * h_pad + idx
-    live = f != 0
     out = {
         "l2_table_cells": small_table.numel(),
-        "l2_table_cold_ms": cold_ms(lambda: su.sketch_update_signed(
-            small_plan, small_table, chunks, f, q, r, s_q, s_r), 100, kr.evict),
-        "l2_table_resident_ms": cold_ms(lambda: su.sketch_update_signed(
-            small_plan, small_table, chunks, f, q, r, s_q, s_r), 100,
-            lambda: (kr.evict(), small_table.sum())),
-        "zero_values_ms": cold_ms(lambda: su.sketch_update_signed(
-            plan, table, chunks, zeros, q, r, s_q, s_r), 100, kr.evict),
-        "live_adds": w * int(live.sum()),
-        "warp_combinable_adds": w * int(live.sum())
-        - int(torch.unique(cells[:, live]).numel())}
-    del small_table, zeros, idx, cells
+        "l2_table_cold_ms": cold_ms(lambda: fold(small_plan, small_table, f), 100, kr.evict),
+        "l2_table_resident_ms": cold_ms(lambda: fold(small_plan, small_table, f), 100,
+                                        lambda: (kr.evict(), small_table.sum())),
+        "zero_values_ms": cold_ms(lambda: fold(plan, table, zeros), 100, kr.evict),
+        **warp_combinable(all_indices(plan, chunks, q, r), f)}
+    del small_table, zeros
     return out
 
 
@@ -1464,8 +1565,8 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
         + param_bytes(s_q, s_r) + 8 * touched,
         n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
         shape=f"B={BLOCK} w={w} h_pad={h_pad}, {int((f < 0).sum())} deletions")
-    row["bound_probes"] = flat_signed_probes(kr, ks.spec, plan, scratch, fchunks, f, q, r,
-                                             s_q, s_r)
+    row["bound_probes"] = flat_probes(kr, ks.spec, plan, scratch, fchunks, f, q, r,
+                                      (s_q, s_r))
     log(f"K6 bound probes {row['bound_probes']}")
     kr.rows.append(row)
     del scratch
@@ -1699,21 +1800,21 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
     plan, ftable = f_flat.plan, f_flat.table
     fchunks = f_flat.spec.schema.module_chunks(as_index_tensor(blk_items, dev))
     w, h_pad = ftable.shape
-    idx = all_indices(plan, fchunks, q, r)
-    flat = (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)
-    f_all = f.expand(w, BLOCK).reshape(-1)
-    touched = int(torch.unique(flat[f_all != 0]).numel())
+    _, flat, f_all, touched = k1_cells(plan, ftable, fchunks, f, q, r)
     scratch = ftable.clone()
-    kr.add("sketch_update_f32", "sk_update_kernel<float>",
-           err=max_abs_err(su.sketch_update(plan, ftable.clone(), fchunks, f, q, r),
-                           su.sketch_update_ref(plan, ftable.clone(), fchunks, f, q, r)),
-           call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
-           plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
-           library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
-           n_bytes=key_bytes(f_flat.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
-           + 8 * touched,
-           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
-           shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32")
+    row = kr.measure(
+        "sketch_update_f32", "sk_flat_update_kernel<float",
+        err=max_abs_err(su.sketch_update(plan, ftable.clone(), fchunks, f, q, r),
+                        su.sketch_update_ref(plan, ftable.clone(), fchunks, f, q, r)),
+        call=lambda: su.sketch_update(plan, scratch, fchunks, f, q, r),
+        plain=lambda: su.sketch_update_ref(plan, scratch, fchunks, f, q, r),
+        library=lambda: scratch.view(-1).index_add_(0, flat, f_all),
+        n_bytes=key_bytes(f_flat.spec.schema, BLOCK) + nbytes(f) + param_bytes(q, r)
+        + 8 * touched,
+        n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+        shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32")
+    row["geometry"] = flat_deal_note(w, BLOCK)
+    kr.rows.append(row)
     del scratch
 
     # K6f: the float32 signed flat sketch, the turnstile's first block
@@ -1743,8 +1844,8 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
         + param_bytes(s_q, s_r) + 8 * touched,
         n_ops=2 * hash_ops(plan, BLOCK) + 3 * w * BLOCK,
         shape=f"B={BLOCK} w={w} h_pad={h_pad}, float32, {int((tf < 0).sum())} deletions")
-    row["bound_probes"] = flat_signed_probes(kr, f_signed.spec, plan, scratch, tchunks, tf, q, r,
-                                             s_q, s_r)
+    row["bound_probes"] = flat_probes(kr, f_signed.spec, plan, scratch, tchunks, tf, q, r,
+                                      (s_q, s_r))
     log(f"K6f bound probes {row['bound_probes']}")
     kr.rows.append(row)
     del scratch, flat, vals
@@ -1967,7 +2068,7 @@ def main(argv=None) -> int:
         spec, hspec, cs_params, stream, args.seed)
     e2e["turnstile"] = turn_e2e
 
-    acc_ks, acc_launches, acc_e2e = accuracy_path(stream, args.seed)
+    acc_ks, acc_linear, acc_launches, acc_e2e = accuracy_path(stream, args.seed)
     e2e["accuracy"] = acc_e2e
     ep_c, ks_c, cons_launches, cons_e2e = conservative_path(
         spec, params, stream, thr, exact_items, main_answer, eng.backend.state, ks)
@@ -1981,11 +2082,15 @@ def main(argv=None) -> int:
     e2e["training"] = train_e2e
     leaves = [("/".join(path), c) for path, c in tr.flatten(state["compression"].compressors)
               if c is not None]
+    bspec = tl.make_sketch_spec(cfg)
+    bigram = (bspec, tl.make_plan(bspec), *state["sketch_params"], bigram_chunks(cfg, bspec, 0),
+              state["sketch_table"])
     del state
     torch.cuda.empty_cache()
 
     kr = KernelRows({**main_launches,
-                     "sketch_update": flat_launches["sketch_update"],
+                     "sketch_update": sum(launches["sketch_update"] for launches in (
+                         flat_launches, acc_launches, train_launches)),
                      "sketch_query": flat_launches["sketch_query"],
                      **{k: v for k, v in turn_launches.items()
                         if k.endswith(("_signed", "_signed_median"))},
@@ -1997,6 +2102,12 @@ def main(argv=None) -> int:
                          "sketch_update_f32", "hier_update_f32", "sketch_update_signed_f32")},
                      "hier_update_signed_f32": train_launches["hier_update_signed_f32"]})
     kernel_rows(kr, hspec, eng, ks, stream, grids)
+    k1 = next(row for row in kr.rows if row["name"] == "sketch_update")
+    k1["launches_by_path"] = {"flat": flat_launches["sketch_update"],
+                              "accuracy": acc_launches["sketch_update"],
+                              "training": train_launches["sketch_update"]}
+    k1["by_shape"] = k1_by_shape(kr, stream, acc_linear, ks, bigram)
+    del bigram
     signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids, stream, args.seed)
     conservative_kernel_rows(kr, hspec, ep_c, ks_c, acc_ks, stream)
     kr.rows[-1]["launches_by_path"] = {
@@ -2005,7 +2116,8 @@ def main(argv=None) -> int:
     f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leaves)
     check(len(kr.rows) == len(KERNELS) and {r["name"] for r in kr.rows} == set(KERNELS),
           "a row for every kernel")
-    del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks, f_flat, f_hier, f_signed
+    del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks, acc_linear, f_flat, f_hier
+    del f_signed
     del leaves
     torch.cuda.empty_cache()
     e2e["profile"] = device_profile(spec, params, stream, thr)

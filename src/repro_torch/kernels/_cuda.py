@@ -182,8 +182,8 @@ def build(force: bool = False) -> Path:
 def _declare(lib) -> None:
     vp, i32, i64, u32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_uint32
     sigs = {
-        "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
-        "sk_sketch_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp],
+        "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i64, vp],
+        "sk_sketch_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i64, vp],
         "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
         "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64, vp],
         "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64,

@@ -1,7 +1,11 @@
 // The fused hierarchy fold, one body for K3 (unsigned) and K8 (signed), on
-// int32 and float32 tables (K3f, K8f), and its launcher.  Included by
-// sketch_kernels.cu (K3, K3f) and signed_kernels.cu (K8, K8f);
-// conservative_kernels.cu takes opt_in_smem from here.
+// int32 and float32 tables (K3f, K8f), and its launcher.  The flat folds K1
+// and K1f are its one-level unsigned case (offset 0, divisor 1;
+// sketch_kernels.cu `launch_flat_fold`).  The signed flat fold K6 is not:
+// its sign is the packed bits' last, where a one-level signed fold would
+// read bit 0.  Included by sketch_kernels.cu (K1, K1f, K3, K3f) and
+// signed_kernels.cu (K8, K8f); conservative_kernels.cu takes opt_in_smem
+// from here.
 //
 // K3 replaces src/repro/kernels/hier_update.py `hier_update_pallas`
 // (`_hier_kernel_int`, `_local_lanes`, `_tile_meta`; as K3f,
@@ -50,7 +54,9 @@
 // adds each nonzero cell of its copy to the table with one global atomic.
 // The other levels add with global atomics directly.  The residency rule
 // (kernels/hier_update.py `fold_geometry`) picks the shared levels, the
-// CTAs and the span; both routes are this body.  int32 adds wrap, so any
+// CTAs and the span; both routes are this body.  K1 folds with global
+// atomics only, in the CTAs and spans of kernels/sketch_update.py
+// `flat_deal`.  int32 adds wrap, so any
 // grouping of them gives the plain fold's table; float32 adds are exact
 // while every partial sum is an integer below 2^24 (the reference's
 // contract, hier_update.py:35-38).
@@ -68,6 +74,7 @@ namespace {
 
 constexpr int kFoldThreads = 256;           // hier_update.THREADS: the keys of a tile
 constexpr int kHierCtasPerSm = 4;           // hier_update.CTAS_PER_SM
+constexpr int kFlatCtasPerSm = 8;           // sketch_update.FLAT_CTAS_PER_SM
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNoCell = 0xffffffffu;   // a dead lane's cell: above any real one
 
@@ -110,8 +117,11 @@ __host__ __device__ __forceinline__ int64_t level_cols(const LevelsC& levels, in
   return (l + 1 < levels.n_levels ? levels.offsets[l + 1] : cols) - levels.offsets[l];
 }
 
-// The body of both folds; see the top of this file.
-template <typename T, int kChunks, bool kSigned>
+// The body of both folds; see the top of this file.  kFlat is K1's
+// one-level case: a CTA folds one row, blockIdx.y, with global atomics
+// only (no level in shared memory), and the level's division by 1 is
+// skipped.
+template <typename T, int kChunks, bool kSigned, bool kFlat = false>
 __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC& levels,
                                           T* __restrict__ table, int64_t cols, int32_t w,
                                           const int64_t* __restrict__ chunks,
@@ -124,10 +134,13 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
                                           int64_t span_tiles) {
   extern __shared__ __align__(16) unsigned char sk_smem[];
   T* copy = reinterpret_cast<T*>(sk_smem);
-  const int n_levels = levels.n_levels;
+  const int n_levels = kFlat ? 1 : levels.n_levels;
+  const uint32_t shared_levels = kFlat ? 0u : shared_mask;
+  const int k_begin = kFlat ? (int)blockIdx.y : 0;   // the rows this CTA folds
+  const int k_end = kFlat ? k_begin + 1 : w;
   int64_t copy_cells = 0;
   for (int l = 0; l < n_levels; ++l) {
-    if ((shared_mask >> l) & 1u) copy_cells += w * level_cols(levels, cols, l);
+    if ((shared_levels >> l) & 1u) copy_cells += w * level_cols(levels, cols, l);
   }
   for (int64_t i = threadIdx.x; i < copy_cells; i += blockDim.x) copy[i] = T(0);
   __syncthreads();
@@ -145,7 +158,7 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
       const int64_t* x = chunks + b * plan.total_chunks;
       uint32_t xr[kChunks > 0 ? kChunks : 1];
       load_chunks<kChunks>(plan, x, live, xr);
-      for (int k = 0; k < w; ++k) {
+      for (int k = k_begin; k < k_end; ++k) {
         uint32_t idx = 0, bits = 0;
         if (live) {
           const int64_t* sqk = nullptr;
@@ -161,11 +174,11 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
         T* row = table + k * cols;
         int64_t base = 0;   // level l's copy in shared memory
         for (int l = 0; l < n_levels; ++l) {
-          const uint32_t col = div_by(divs.level[l], idx);
+          const uint32_t col = kFlat ? idx : div_by(divs.level[l], idx);
           T v = f;
           if constexpr (kSigned) v = sk_apply_sign(f, (bits >> l) & 1u);
           const int64_t h = level_cols(levels, cols, l);
-          if ((shared_mask >> l) & 1u) {
+          if ((shared_levels >> l) & 1u) {
             const unsigned peers = __match_any_sync(kFull, live ? col : kNoCell);
             const T sum = peer_sum(peers, v);
             if (live && lane == (unsigned)(__ffs(peers) - 1) && sum != T(0)) {
@@ -183,7 +196,7 @@ __device__ __forceinline__ void hier_fold(const IndexPlanC& plan, const LevelsC&
 
   int64_t base = 0;
   for (int l = 0; l < n_levels; ++l) {
-    if (!((shared_mask >> l) & 1u)) continue;
+    if (!((shared_levels >> l) & 1u)) continue;
     const int64_t h = level_cols(levels, cols, l);
     for (int k = 0; k < w; ++k) {
       T* row = table + k * cols + levels.offsets[l];
@@ -207,6 +220,25 @@ __global__ void __launch_bounds__(kFoldThreads, kHierCtasPerSm)
                           const __grid_constant__ HierDivsC divs, uint32_t shared_mask,
                           int64_t span_tiles) {
   hier_fold<T, kChunks, false>(plan, levels, table, cols, w, chunks, freqs, n, q, r, nullptr,
+                               nullptr, divs, shared_mask, span_tiles);
+}
+
+// K1 / K1f: the one-level fold, a CTA a row (gridDim.y = w).  A thread
+// hashes one row of its key, so the bounds ask for the registers of eight
+// CTAs an SM (32 a thread), as the first K1 ran; with K3's four the
+// instance took 48.  It reads a key's chunks where the hash uses them
+// (kChunks 0): staging them for one row bought nothing and cost a median
+// 4% (tools/fold_ab.py --spans).
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads, kFlatCtasPerSm)
+    sk_flat_update_kernel(const __grid_constant__ IndexPlanC plan,
+                          const __grid_constant__ LevelsC levels, T* __restrict__ table,
+                          int64_t cols, int32_t w, const int64_t* __restrict__ chunks,
+                          const T* __restrict__ freqs, int64_t n,
+                          const int64_t* __restrict__ q, const int64_t* __restrict__ r,
+                          const __grid_constant__ HierDivsC divs, uint32_t shared_mask,
+                          int64_t span_tiles) {
+  hier_fold<T, 0, false, true>(plan, levels, table, cols, w, chunks, freqs, n, q, r, nullptr,
                                nullptr, divs, shared_mask, span_tiles);
 }
 
@@ -270,11 +302,12 @@ int opt_in_smem(K kernel, size_t smem) {
   return 0;
 }
 
-// Launches K3 (kSigned false; sq and sr unused) or K8 on the caller's
-// stream.  `smem` is the shared bytes the Python rule computed for
-// `shared_mask`; a launch whose figure disagrees with the levels' is
+// Launches K3 (kSigned false; sq and sr unused), K8, or with kFlat K1 (one
+// level, offset 0, divisor 1, no shared level; `ctas` CTAs for each of the
+// w rows) on the caller's stream.  `smem` is the shared bytes the Python rule computed
+// for `shared_mask`; a launch whose figure disagrees with the levels' is
 // refused.
-template <typename T, bool kSigned>
+template <typename T, bool kSigned, bool kFlat = false>
 int launch_hier_fold(const IndexPlanC* plan, const LevelsC* levels, T* table, int64_t cols,
                      int32_t w, const int64_t* chunks, const T* freqs, int64_t n,
                      const int64_t* q, const int64_t* r, const int64_t* sq,
@@ -301,11 +334,13 @@ int launch_hier_fold(const IndexPlanC* plan, const LevelsC* levels, T* table, in
                                                      freqs, n, q, r, sq, sr, divs,
                                                      shared_mask, span_tiles);
   } else {
-    auto kernel = in_registers ? sk_hier_update_kernel<T, kRegChunks>
-                               : sk_hier_update_kernel<T, 0>;
+    auto kernel = kFlat ? sk_flat_update_kernel<T>
+                        : (in_registers ? sk_hier_update_kernel<T, kRegChunks>
+                                        : sk_hier_update_kernel<T, 0>);
     const int rc = opt_in_smem(kernel, (size_t)smem);
     if (rc) return rc;
-    kernel<<<ctas, kFoldThreads, (size_t)smem, s>>>(*plan, *levels, table, cols, w, chunks,
+    const dim3 grid((unsigned)ctas, kFlat ? (unsigned)w : 1u);
+    kernel<<<grid, kFoldThreads, (size_t)smem, s>>>(*plan, *levels, table, cols, w, chunks,
                                                      freqs, n, q, r, divs, shared_mask,
                                                      span_tiles);
   }

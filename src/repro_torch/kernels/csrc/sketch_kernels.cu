@@ -16,15 +16,16 @@
 // and two's-complement addition is associative, so any order of atomics gives
 // the table the jnp scatter gives, wraparound included.
 //
-// The folds K1 and K3 are templates on the table type: int32 tables take int32
-// frequencies and int32 atomics; float32 tables (K1f, K3f: the reference's
-// `_update_kernel_f32` and `_hier_kernel_f32` bodies) take float32 values and
-// float atomics.  K3's body, shared with the signed fold K8, lives in
-// hier_fold.cuh (`sk_hier_update_kernel`).  A float atomicAdd rounds like the
-// jnp scatter's adds but in another order, so float32 tables equal the plain
-// version bit for bit only while every cell's partial sums are exact
-// (integers below 2^24), the reference's own contract (hier_update.py:35-38).
-// K2 and K4 read int32 tables only, as the reference's query kernels do.
+// The folds K1 and K3 run one body on int32 and float32 tables: int32 tables
+// take int32 frequencies and int32 atomics; float32 tables (K1f, K3f: the
+// reference's `_update_kernel_f32` and `_hier_kernel_f32` bodies) take
+// float32 values and float atomics.  That body, shared with the signed fold
+// K8, lives in hier_fold.cuh (`sk_hier_update_kernel`); K1 is its one-level
+// case.  A float atomicAdd rounds like the jnp scatter's adds but in another
+// order, so float32 tables equal the plain version bit for bit only while
+// every cell's partial sums are exact (integers below 2^24), the reference's
+// own contract (hier_update.py:35-38).  K2 and K4 read int32 tables only, as
+// the reference's query kernels do.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype).
 
@@ -40,30 +41,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-// K1 replaces src/repro/kernels/sketch_update.py `sketch_update_pallas`
-// (`_update_kernel_int`; as K1f, `_update_kernel_f32`).  table[k, idx_k(b)] +=
-// f_b, one thread per (row k, key b): gridDim.y = w rows, x over keys.
-// Bound: random 4-byte read-modify-writes into a table larger than L2 (w x h
-// cells); the hash is a few dozen integer operations per (row, key).  The
-// design hashes once per (row, key) and adds with one atomic; zero-frequency
-// pad rows skip it.
-template <typename T>
-__global__ void sk_update_kernel(const __grid_constant__ IndexPlanC plan,
-                                 T* __restrict__ table, int64_t h_pad,
-                                 const int64_t* __restrict__ chunks,
-                                 const T* __restrict__ freqs, int64_t n,
-                                 const int64_t* __restrict__ q,
-                                 const int64_t* __restrict__ r) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = blockIdx.y;
-  if (b >= n) return;
-  const T f = freqs[b];
-  if (f == T(0)) return;
-  const uint32_t idx = composite_index(plan, chunks + b * plan.total_chunks,
-                                       q + k * plan.total_chunks, r + k * plan.n_groups);
-  atomicAdd(table + k * h_pad + idx, f);
-}
 
 // K2 replaces src/repro/kernels/sketch_query.py `sketch_query_pallas`
 // (`_query_kernel`).  out[b] = min_k table[k, idx_k(b)], one thread per query.
@@ -90,15 +67,56 @@ __global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+// K1 replaces src/repro/kernels/sketch_update.py `sketch_update_pallas`
+// (`_update_kernel_int`; as K1f, `_update_kernel_f32`): table[k, idx_k(b)] +=
+// f_b.  A flat sketch is a hierarchy of one level -- offset 0, divisor 1,
+// h_pad columns -- so K1 and K1f launch hier_fold.cuh's body with that one
+// level (launch_flat_fold below, the body's kFlat instance
+// sk_flat_update_kernel): `ctas` CTAs for each row k (gridDim.y = w), each
+// walking spans of consecutive tiles of the block, hashing row k of each
+// key with the fused hash and adding with one global atomic.  Divisor 1 is
+// make_divisor's m = 2^31, s = 31, so the level division would return
+// every index below 2^31 unchanged; the instance skips it.
+//
+// What bounds it: latency and the random atomics, as the first design (one
+// thread per (row, key), gridDim.y = w, composite_index, one global atomic
+// each) was bounded.  Into the flat path's [4, 2^24] table a block is
+// 262,144 random atomics over a table larger than L2; into the accuracy
+// path's [5, 4,096] tables 327,680 atomics land on 20,480 cells, and a
+// sorted stream's run of one source, which shares its 62-66 cells of a row
+// (mod-sketch, equal-sketch), queues its adds on a few L2 addresses.  A
+// private copy of the row per CTA would turn those into one atomic a CTA,
+// but on count-min's uniform keys (16 a cell of a row) it lost to global
+// atomics, and which blocks are skewed is not known at launch (PERF.md,
+// open questions).
+//
+// Why not K3's layout, one thread per key over all w rows: a block of
+// 65,536 keys then has 65,536 threads, each w dependent hashes long, and at
+// K1's shapes the kernel is latency-bound.  It ran 0.7-23% slower than the
+// first design (tools/fold_ab.py, H100 80GB HBM3 at 700 W: count-min at
+// [5, 4,096] +13-14%, the flat path's block 7 +11%).  A CTA a row gives the
+// first design's parallelism; the launch bounds ask for its registers (32
+// a thread, eight CTAs an SM), and a thread reads its key's chunks where
+// the hash uses them (kChunks 0: staging them in registers for one row
+// cost a median 4%).
+//
+// K6 (signed_kernels.cu) stays a kernel of its own: its flat sign is bit
+// n_groups - 1 of the packed sign bits, where this body's one level would
+// read bit 0.
+//
+// `ctas` and `span_tiles` are kernels/sketch_update.py `flat_deal`'s;
+// launch_hier_fold refuses either below 1.
 template <typename T>
-int launch_update(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
-                  const int64_t* chunks, const T* freqs, int64_t n, const int64_t* q,
-                  const int64_t* r, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_update_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad,
-                                                                   chunks, freqs, n, q, r);
-  return (int)cudaGetLastError();
+int launch_flat_fold(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
+                     const int64_t* chunks, const T* freqs, int64_t n, const int64_t* q,
+                     const int64_t* r, int32_t ctas, int64_t span_tiles, void* stream) {
+  LevelsC one{};
+  one.n_levels = 1;
+  one.divs[0] = 1;
+  one.offsets[0] = 0;
+  return sk_fold::launch_hier_fold<T, false, true>(plan, &one, table, h_pad, w, chunks, freqs,
+                                                   n, q, r, nullptr, nullptr, 0u, ctas,
+                                                   span_tiles, 0, stream);
 }
 
 }  // namespace
@@ -107,14 +125,18 @@ extern "C" {
 
 int sk_sketch_update(const IndexPlanC* plan, int32_t* table, int64_t h_pad, int32_t w,
                      const int64_t* chunks, const int32_t* freqs, int64_t n,
-                     const int64_t* q, const int64_t* r, void* stream) {
-  return launch_update(plan, table, h_pad, w, chunks, freqs, n, q, r, stream);
+                     const int64_t* q, const int64_t* r, int32_t ctas, int64_t span_tiles,
+                     void* stream) {
+  return launch_flat_fold(plan, table, h_pad, w, chunks, freqs, n, q, r, ctas, span_tiles,
+                          stream);
 }
 
 int sk_sketch_update_f32(const IndexPlanC* plan, float* table, int64_t h_pad, int32_t w,
                          const int64_t* chunks, const float* freqs, int64_t n,
-                         const int64_t* q, const int64_t* r, void* stream) {
-  return launch_update(plan, table, h_pad, w, chunks, freqs, n, q, r, stream);
+                         const int64_t* q, const int64_t* r, int32_t ctas, int64_t span_tiles,
+                         void* stream) {
+  return launch_flat_fold(plan, table, h_pad, w, chunks, freqs, n, q, r, ctas, span_tiles,
+                          stream);
 }
 
 int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad, int32_t w,

@@ -16,6 +16,9 @@ multiples, int32 wraparound, negative (turnstile) frequencies, strided
 level views, and both residency routes of the conservative fold (K5, K5i;
 also on blocks of long and short runs of a few keys, or of one key) and
 of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables;
+the flat fold (K1, K1f, the hierarchy body's one-level case) at spans of
+1 and 64 tiles, w = 1, 5 and 9, on blocks of mixed keys, of one source
+and of one key;
 the candidate-grid queries (K4, K9, K9m) on both routes for w = 1-9, on
 views whose windows start unaligned.
 """
@@ -110,6 +113,79 @@ def test_k1_k2_flat_sketch_match_plain(cuda):
     assert torch.equal(est, sq.sketch_query_ref(plan, got, chunks, params.q, params.r))
 
 
+def _flat_spec(w):
+    """A flat sketch of 62 x 66 = 4,092 cells a row (the accuracy path's
+    mod-sketch) over a two-module 32-bit key, padded to 4,096."""
+    return sk.mod_sketch_spec(KeySchema(domains=(1 << 32, 1 << 32)), [(0,), (1,)],
+                              (62, 66), w)
+
+
+def _flat_block(case, n, seed):
+    """Items and int32 frequencies: random keys with heavy duplication
+    ("mixed"), the same with every key of one source ("one_source"), or one
+    key; every fifth frequency zero."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    items[n // 10 : n // 4] = items[0]
+    if case == "one_source":
+        items[:, 0] = items[0, 0]
+    freqs = rng.integers(0, 1 << 12, n).astype(np.int32)
+    freqs[::5] = 0
+    if n == 1:
+        freqs[:] = 7
+    return items, freqs
+
+
+def _force_deal(monkeypatch, n, span, ctas=None):
+    """Force K1/K1f's spans of ``span`` tiles, one CTA a span unless ``ctas``
+    is given."""
+    deal = (-(-n // (hu.THREADS * span)) if ctas is None else ctas, span)
+    monkeypatch.setattr(su, "flat_deal", lambda *args: deal)
+
+
+@pytest.mark.parametrize("case,n", [("mixed", 5003), ("one_source", 5003), ("one_key", 1)])
+@pytest.mark.parametrize("w", [1, 5, 9])
+@pytest.mark.parametrize("span", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k1_k1f_match_plain(cuda, monkeypatch, dtype, span, w, case, n):
+    """K1 (int32) and K1f (float32, integer values: every partial sum
+    exact) bit for bit with the plain fold on a random table."""
+    spec = _flat_spec(w)
+    plan = make_plan(spec)
+    params = _params(spec, 80 + w, cuda)
+    h_pad = su.padded_table_size(spec.table_size, 512)
+    items, freqs = _flat_block(case, n, 81)
+    chunks = _chunks(spec, items, cuda)
+    f = torch.from_numpy(freqs).to(cuda, dtype)
+    base = _random_table((w, h_pad), 82, cuda).to(dtype)
+    _force_deal(monkeypatch, n, span)
+    name = "sketch_update" if dtype == torch.int32 else "sketch_update_f32"
+    n0 = _cuda.LAUNCHES[name]
+    got = su.sketch_update(plan, base.clone(), chunks, f, params.q, params.r)
+    want = su.sketch_update_ref(plan, base.clone(), chunks, f, params.q, params.r)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == n0 + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ctas,span", [(0, 1), (1, 0)])
+def test_k1_refuses_a_launch_it_cannot_make(cuda, monkeypatch, ctas, span):
+    """A launch of no CTAs or of empty spans is refused by the launcher and
+    raised on: nothing falls back to the plain fold."""
+    spec = _flat_spec(5)
+    plan = make_plan(spec)
+    params = _params(spec, 90, cuda)
+    items, freqs = _flat_block("mixed", 300, 91)
+    f = torch.from_numpy(freqs).to(cuda)
+    table = torch.zeros((5, 4096), dtype=torch.int32, device=cuda)
+    _force_deal(monkeypatch, 300, span, ctas)
+    n0 = _cuda.LAUNCHES["sketch_update"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        su.sketch_update(plan, table, _chunks(spec, items, cuda), f, params.q, params.r)
+    assert not bool(table.any())
+    assert _cuda.LAUNCHES["sketch_update"] == n0
+
+
 @pytest.mark.parametrize("route", ["rule", "global"])
 def test_k3_fused_hierarchy_update_matches_plain(cuda, monkeypatch, route):
     hspec = _hspec()
@@ -137,6 +213,8 @@ def test_k3_fused_hierarchy_update_matches_plain(cuda, monkeypatch, route):
 
 @pytest.mark.parametrize("route", ["rule", "global"])
 def test_k1_k3_int32_wraparound_matches_plain(cuda, monkeypatch, route):
+    """K3 on its rule's route or all global, and K1 into level 1's flat
+    sketch (2 x 4,352 cells): int32 sums that wrap, bit for bit."""
     hspec = _hspec(w=2)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
     params = _params(hspec.levels[-1], 7, cuda)
@@ -155,6 +233,17 @@ def test_k1_k3_int32_wraparound_matches_plain(cuda, monkeypatch, route):
     want = hu.hier_update_ref(hplan, table.clone(), chunks, f, params.q, params.r)
     assert torch.equal(got, want)
     assert int(got.min()) < 0                         # it did wrap
+
+    spec = hspec.levels[1]
+    plan = make_plan(spec)
+    lparams = _params(spec, 10, cuda)
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    flat = _random_table((2, h_pad), 11, cuda, lo=(1 << 31) - (1 << 24), hi=(1 << 31) - 1)
+    lchunks = _chunks(spec, hspec.level_items(1, items), cuda)
+    got = su.sketch_update(plan, flat.clone(), lchunks, f, lparams.q, lparams.r)
+    want = su.sketch_update_ref(plan, flat.clone(), lchunks, f, lparams.q, lparams.r)
+    assert torch.equal(got, want)
+    assert int(got.min()) < 0
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])

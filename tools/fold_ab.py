@@ -1,8 +1,9 @@
-"""Time the folds (K3, K3f, K8, K8f, K6, K6f, K5, K5i) of two source trees
-on one card, in turns, beside ``index_add_`` of the same values where one
-call computes the same function.
+"""Time the folds (K1, K1f, K3, K3f, K8, K8f, K6, K6f, K5, K5i) of two source
+trees on one card, in turns, beside ``index_add_`` of the same values where
+one call computes the same function.
 
     python3 tools/fold_ab.py --trees OLD NEW [--out FILE]
+    python3 tools/fold_ab.py --spans TREE [--out FILE]
 
 Each tree is a checkout of this repository (its ``src/repro_torch``).  The
 trees run in the order OLD, NEW, NEW, OLD, each in a process of its own
@@ -24,10 +25,26 @@ and times, with L2 evicted before every call (CUDA events):
   (level 0 shared, level 1 global), one launch; the conservative rows
   also carry the kernel's device time (torch.profiler, L2 evicted);
 - K8f: starcoder2-7b's embed leaf (49,152 x 4,608 keys, the compressor's
-  two-level plan, integer values in [-8, 8]).
+  two-level plan, integer values in [-8, 8]);
+- K1 at ``chip_smoke.py``'s three shapes: the accuracy path's count-min,
+  equal-sketch (64 x 64) and mod-sketch (62 x 66) at h = 4,096, w = 5,
+  blocks 0, 7 (the heaviest) and 13 of the main stream, into zero
+  ``5 x 4096`` int32 tables; the flat path's zero ``4 x 4096^2`` table at
+  blocks 0 and 7 (K1f too, float32); and the training path's bigram fold
+  (starcoder2-7b's first batch of 8 x 1,024 tokens, 8,184 keys, into a
+  zero ``5 x 65536`` table).  Each K1 row also has the kernel's device
+  time (torch.profiler, L2 evicted);
+- the accuracy path's linear ingest: the whole main stream into a fresh
+  ``KernelSketch`` of each of its three specs (16 K1 launches), host
+  seconds from a sync to a sync, five times.
 
 The conservative rows have no ``index_add_``; a tree whose module has
 ``fold_depths`` also reports each block's D, D_r and S.
+
+``--spans TREE`` times one tree's K1 (a tree whose ``sketch_update`` has
+``flat_deal``) at the accuracy path's nine (spec, block) shapes and the
+flat path's blocks 0 and 7 with its span forced to 1, 2, 4, 8, 16, 32 and
+64 tiles (one CTA a span), cold and device ms.
 
 Each row also has the wrapper's warm time: the mean of back-to-back calls,
 which the host's launch cost sets when it exceeds the kernel's.  Only the
@@ -42,6 +59,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
@@ -50,24 +68,21 @@ BLOCK = 1 << 16
 EMBED = (49152, 4608)
 
 
-def one(tree: str) -> dict:
-    sys.path.insert(0, str(Path(tree).resolve() / "src"))
-    import numpy as np
-    import torch
+SPANS = (1, 2, 4, 8, 16, 32, 64)
+ACC_BLOCKS = (0, 7, 13)
 
-    from repro_torch.core import hierarchy as hh
-    from repro_torch.core import sketch as sk
-    from repro_torch.core.hashing import KeySchema, draw_hash_params_np
-    from repro_torch.kernels import _cuda
-    from repro_torch.kernels import hier_update as hu
-    from repro_torch.kernels import sketch_update as su
-    from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan
-    from repro_torch.streams import zipf_graph_stream
-    from repro_torch.training import grad_compression as gc
 
-    dev = torch.device("cuda")
-    _cuda.build(force=True)
-    l2 = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+def accuracy_specs(sk, schema):
+    """chip_smoke.py's accuracy path: h = 4,096, w = 5 (the mod-sketch at
+    the Thm-3 ranges its seed-0 sample gives)."""
+    return {"count-min": sk.count_min_spec(schema, 4096, 5),
+            "equal-sketch": sk.equal_sketch_spec(schema, 4096, 5),
+            "mod-sketch": sk.mod_sketch_spec(schema, [(0,), (1,)], (62, 66), 5)}
+
+
+def timers(torch, l2):
+    """cold_ms, warm_ms and device_ms on one card, L2 evicted by rewriting
+    ``l2`` before each cold call."""
 
     def cold_ms(fn, reps):
         fn()
@@ -92,11 +107,129 @@ def one(tree: str) -> dict:
         b.synchronize()
         return a.elapsed_time(b) / reps
 
+    def device_ms(fn, kernel, reps):
+        """Mean device ms of the kernel whose name holds ``kernel``, over
+        ``reps`` calls each after an L2 eviction (torch.profiler); None if
+        the trace holds no such kernel."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                l2.add_(1)
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        return sum(times) / len(times) / 1e3 if times else None
+
+    return cold_ms, warm_ms, device_ms
+
+
+def k1_inputs(tree: str):
+    """The main stream, its schema, a seeded params draw and the chunks of
+    a block for a spec, on the card, from the tree's own modules."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hashing import KeySchema, draw_hash_params_np
+    from repro_torch.streams import zipf_graph_stream
+
+    dev = torch.device("cuda")
+    stream = zipf_graph_stream(**STREAM, seed=0)
+    schema = KeySchema((1 << 32, 1 << 32))
+
     def params(rng, spec):
         return (torch.from_numpy(draw_hash_params_np(rng, (spec.width, spec.schema.total_chunks))
                                  ).to(dev, torch.int64),
                 torch.from_numpy(draw_hash_params_np(rng, (spec.width, spec.n_groups))
                                  ).to(dev, torch.int64))
+
+    def block(spec, b, dtype=torch.int32, blocks=1):
+        sl = slice(b * BLOCK, (b + blocks) * BLOCK)
+        items = torch.from_numpy(stream.items[sl].astype(np.int64)).to(dev)
+        return (spec.schema.module_chunks(items),
+                torch.from_numpy(stream.freqs[sl]).to(dev, dtype))
+
+    return stream, schema, params, block
+
+
+def spans(tree: str) -> dict:
+    """K1 of one tree at the accuracy path's and the flat path's shapes, at
+    every span of SPANS tiles (see the module's docstring)."""
+    stream, schema, params, block = k1_inputs(tree)
+    import numpy as np
+    import torch
+
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import hier_update as hu
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.kernels.hashes import make_plan
+
+    dev = torch.device("cuda")
+    _cuda.build(force=True)
+    sms = _cuda.sm_count(0)
+    cold_ms, _, device_ms = timers(torch, torch.zeros(1 << 26, dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(20)
+    rule = su.flat_deal
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "sms": sms, "rows": []}
+    shapes = [(name, spec, b) for name, spec in accuracy_specs(sk, schema).items()
+              for b in ACC_BLOCKS]
+    shapes += [("flat", sk.mod_sketch_spec(schema, [(0,), (1,)], (4096, 4096), 4), b)
+               for b in (0, 7)]
+    for name, spec, b in shapes:
+        plan = make_plan(spec)
+        q, r = params(rng, spec)
+        chunks, f = block(spec, b)
+        n = f.shape[0]
+        w, h_pad = spec.width, su.padded_table_size(spec.table_size, 512)
+        table = torch.zeros((w, h_pad), dtype=torch.int32, device=dev)
+        want = su.sketch_update_ref(plan, table.clone(), chunks, f, q, r)
+        base = {"shape": name, "block": b, "w": w, "h_pad": h_pad, "keys": n,
+                "top_source_rows": int(np.unique(stream.items[b * BLOCK:(b + 1) * BLOCK, 0],
+                                                 return_counts=True)[1].max()),
+                "rule": rule(w, n, sms)}
+        for span in SPANS:
+            deal = (-(-n // (hu.THREADS * span)), span)
+            su.flat_deal = lambda *a, _d=deal: _d
+            got = su.sketch_update(plan, table.clone(), chunks, f, q, r)
+            check = bool(torch.equal(got, want))
+            scratch = table.clone()
+            call = lambda: su.sketch_update(plan, scratch, chunks, f, q, r)  # noqa: E731
+            out["rows"].append({
+                **base, "ctas": deal[0], "span_tiles": span, "equal_plain": check,
+                "ms": cold_ms(call, 100), "device_ms": device_ms(call, "update_kernel<int", 10)})
+            su.flat_deal = rule
+            print(json.dumps(out["rows"][-1]), flush=True)
+            if not check:
+                raise SystemExit(f"K1 differs from its plain version: {out['rows'][-1]}")
+    return out
+
+
+def one(tree: str) -> dict:
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import hierarchy as hh
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import hier_update as hu
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan
+    from repro_torch.kernels.ops import KernelSketch
+    from repro_torch.training import grad_compression as gc
+    from repro_torch.training import train_loop as tl
+
+    dev = torch.device("cuda")
+    _cuda.build(force=True)
+    l2 = torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+    cold_ms, warm_ms, device_ms = timers(torch, l2)
+    stream, schema, params, k1_block = k1_inputs(tree)
 
     def block(hspec, hplan, items, vals, q, r, signs=None):
         """chunks, and the flat cells and values that index_add_ adds."""
@@ -114,9 +247,8 @@ def one(tree: str) -> dict:
             .expand(w, vals.shape[0]).reshape(-1) for l in range(hplan.n_levels)])
         return chunks, flat, vals_all
 
-    stream = zipf_graph_stream(**STREAM, seed=0)
     rng = np.random.default_rng(0)
-    spec = sk.mod_sketch_spec(KeySchema((1 << 32, 1 << 32)), [(0,), (1,)], (4096, 4096), 4)
+    spec = sk.mod_sketch_spec(schema, [(0,), (1,)], (4096, 4096), 4)
     hspec = hh.HierarchySpec.from_spec(spec)
     hplan = hu.make_hier_plan(hspec)
     q, r = params(rng, spec)
@@ -178,23 +310,6 @@ def one(tree: str) -> dict:
     # K5 on both routes and K5i, into zero int32 tables
     from repro_torch.kernels import sketch_update_conservative as scu
 
-    def device_ms(fn, kernel, reps):
-        """Mean device ms of the kernel whose name holds ``kernel``, over
-        ``reps`` calls each after an L2 eviction (torch.profiler); None if
-        the trace holds no such kernel."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                l2.add_(1)
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        return sum(times) / len(times) / 1e3 if times else None
-
     def cons_row(name, call, idxs, vals, reps=20):
         kernel = "sk_conservative_" + ("fold" if name == "K5i" else "update")
         out[name] = {"ms": cold_ms(call, reps), "warm_ms": warm_ms(call, reps),
@@ -226,6 +341,57 @@ def one(tree: str) -> dict:
               for lv in hspec.levels]
     cons_row("K5i", lambda: scu.conservative_fold_tables(tables, idxs, vals0), idxs, vals0)
     del tables, idxs
+
+    # K1 and K1f at chip_smoke.py's shapes (see the module's docstring)
+    k1_rng = np.random.default_rng(20)
+
+    def k1_row(name, kspec, chunks, vals, kq, kr, h_pad):
+        kplan = make_plan(kspec)
+        idx = all_indices(kplan, chunks, kq, kr)
+        flat = (torch.arange(kspec.width, device=dev)[:, None] * h_pad + idx).reshape(-1)
+        table = torch.zeros((kspec.width, h_pad), dtype=vals.dtype, device=dev)
+
+        def fold(t, c, v):
+            su.sketch_update(kplan, t, c, v, kq, kr)
+
+        row(name, fold, table, chunks, vals, flat, vals.expand(kspec.width, -1).reshape(-1))
+        kernel = "update_kernel<" + ("int" if vals.dtype == torch.int32 else "float")
+        out[name]["device_ms"] = device_ms(lambda: fold(table, chunks, vals), kernel, 20)
+        if hasattr(su, "flat_deal"):
+            out[name]["ctas"], out[name]["span_tiles"] = su.flat_deal(
+                kspec.width, chunks.shape[0], _cuda.sm_count(0))
+
+    for kind, aspec in accuracy_specs(sk, schema).items():
+        kq, kr = params(k1_rng, aspec)
+        for b in ACC_BLOCKS:
+            k1_row(f"K1_{kind}_b{b}", aspec, *k1_block(aspec, b), kq, kr,
+                   su.padded_table_size(aspec.table_size, 512))
+    kq, kr = params(k1_rng, spec)
+    for b in (0, hb):
+        for name, dtype in (("K1", torch.int32), ("K1f", torch.float32)):
+            k1_row(f"{name}_flat_b{b}", spec, *k1_block(spec, b, dtype), kq, kr,
+                   su.padded_table_size(spec.table_size, 512))
+    cfg = get_config("starcoder2-7b")
+    bspec = tl.make_sketch_spec(cfg)
+    tokens = torch.from_numpy(tl.synthetic_batches(cfg, 8, 1024)(0)["tokens"]).to(dev)
+    grams = tl.ngram.ngram_items(tokens, cfg.sketch_ngrams)
+    kq, kr = params(k1_rng, bspec)
+    k1_row("K1_bigram", bspec, bspec.schema.module_chunks(grams),
+           torch.ones(grams.shape[0], dtype=torch.int32, device=dev), kq, kr,
+           bspec.table_size)
+
+    # the accuracy path's linear ingest of the whole stream (host seconds)
+    for kind, aspec in accuracy_specs(sk, schema).items():
+        secs = []
+        for _ in range(5):
+            sketch = KernelSketch(aspec, params(k1_rng, aspec), block_b=BLOCK)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sketch.update(stream.items, stream.freqs)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        out[f"linear_ingest_{kind}"] = {"s": secs}
+        del sketch
 
     plan = gc._leaf_plan(gc.CompressionConfig(enabled=True), EMBED)
     lspec = plan.hspec.levels[-1]
@@ -260,6 +426,7 @@ def one(tree: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--spans", metavar="TREE")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -273,6 +440,12 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.spans:
+        result = {"card": card, **spans(args.spans)}
+        if args.out:
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(card)
+        return 0
     old, new = args.trees
     runs = []
     for tree in (old, new, new, old):
@@ -288,9 +461,13 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(card)
     for name in ("K3", "K3_heaviest", "K3f", "K8", "K6", "K6f", "K8f_embed", "K5_global",
-                 "K5_shared", "K5_shared_heaviest", "K5i"):
+                 "K5_shared", "K5_shared_heaviest", "K5i",
+                 *(name for name in runs[0] if name.startswith("K1"))):
         print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name].get('index_add_ms')}"
                              f"/{run[name]['warm_ms']:.5f}/{run[name].get('device_ms')}"
+                             for run in runs))
+    for name in (name for name in runs[0] if name.startswith("linear_ingest")):
+        print(name, " ".join(f"{min(run[name]['s']):.6f}/{sorted(run[name]['s'])[2]:.6f}"
                              for run in runs))
     return 0
 
