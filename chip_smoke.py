@@ -25,7 +25,9 @@ Phases, any failure of which exits non-zero:
    sketch of the same widths; the signed threshold descent at phi of the
    net mass (its grids on K9m, the median over rows in the launch), K9's
    per-row estimates of the answer keys, whose median must equal their
-   estimates, and a block of signed point queries.  Deletion must cancel bit
+   estimates, a block of signed point queries (one K7m launch: the median
+   over rows in the launch) and their rows (one K7 launch), whose median
+   must equal the estimates bit for bit.  Deletion must cancel bit
    for bit (the tables equal those of the kept half alone), and tables and
    answers must equal the plain path's on the card; recall and precision
    against the exact answer are printed, not asserted (the median descent
@@ -59,11 +61,12 @@ Phases, any failure of which exits non-zero:
    coordinates, ``corrected == dense + residual`` exactly, and K8f
    against its plain version on that real gradient within 2^-10 of the
    sum of |v| per cell;
-3. hold each kernel (K1-K9, K9m, K5i, K1f, K3f, K6f, K8f) against its
+3. hold each kernel (K1-K9, K7m, K9m, K5i, K1f, K3f, K6f, K8f) against its
    plain version on the card at the shapes its path gives it (int32 and
    integer-valued float32: bit-identical; K4, K9 and K9m on every grid
    their paths launched, K4 on both routes, K9m also against the median of
-   K9's rows bit for bit; K8f at all 9 leaf shapes; K5 and
+   K9's rows bit for bit, K7m against the median of K7's; K2 at each of
+   its 16 accuracy-path calls; K8f at all 9 leaf shapes; K5 and
    K5i also on float32 tables fed non-integer frequencies, bit-identical),
    K5, K3, K3f, K8 and K8f on both residency routes (K8 also on the
    stream's first block in its sorted order, K3 and K5's shared route also
@@ -79,6 +82,8 @@ Phases, any failure of which exits non-zero:
    HBM, then D_r dependent steps of the fold's recurrence in registers,
    both latencies measured by a probe kernel; D, D_r and S of each timed
    block from ``fold_depths``),
+   K2, K7 and K7m also beside the sector bound (32 bytes a random cell
+   read), K7m also beside K7 then ``median_rows``;
    K8f, K1, K6 and K6f beside probes of what bounds them (a finest level
    or a flat table that fits L2, all-zero values; for the flat folds also
    the adds a warp combine would save); K1 also at each of those shapes;
@@ -122,6 +127,7 @@ from repro_torch.device import as_index_tensor  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import hier_query as hq  # noqa: E402
 from repro_torch.kernels import hier_update as hu  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import sketch_query as sq  # noqa: E402
 from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
@@ -181,12 +187,15 @@ CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sketch_update": ("hier_fold.cuh", "src/repro/kernels/sketch_update.py:124"),
-    "sketch_query": ("sketch_kernels.cu", "src/repro/kernels/sketch_query.py:47"),
+    "sketch_query": ("point_query.cuh", "src/repro/kernels/sketch_query.py:47"),
     "hier_update": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:183"),
     "hier_query": ("hier_query.cuh", "src/repro/kernels/hier_query.py:53"),
     "sketch_update_signed": ("signed_kernels.cu",
                              "src/repro/kernels/sketch_update.py:184"),
-    "sketch_query_signed": ("signed_kernels.cu", "src/repro/kernels/sketch_query.py:114"),
+    "sketch_query_signed": ("point_query.cuh", "src/repro/kernels/sketch_query.py:114"),
+    # K7 with the median over rows fused (the reference takes it after the
+    # kernel, src/repro/kernels/ops.py:211)
+    "sketch_query_signed_median": ("point_query.cuh", "src/repro/kernels/sketch_query.py:114"),
     "hier_update_signed": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:319"),
     "hier_query_signed": ("hier_query.cuh", "src/repro/kernels/hier_query.py:150"),
     # K9 with the median over rows fused (the reference takes it after the
@@ -311,6 +320,22 @@ def param_bytes(q: torch.Tensor, r: torch.Tensor) -> int:
     """Hash params at their own width: uint32 each, as the reference holds
     them (the port keeps them in int64)."""
     return 4 * (q.numel() + r.numel())
+
+
+def point_query_bytes(spec, plan, table, chunks, q, r, signs=(), out_bytes=0):
+    """The bytes a block of point queries (K2, K7, K7m) must move, two ways:
+    (bytes, sector bytes).  Both count the keys, the params (``signs``, the
+    sign params, too) and the output ``out_bytes``; bytes then count 4 B a
+    distinct cell read, sector bytes the int64 chunks the kernels read and
+    32 B a distinct 32-byte sector the cells lie in (a random 4-byte read
+    moves a sector)."""
+    w, h_pad = table.shape
+    idx = all_indices(plan, chunks, q, r)
+    cells = (torch.arange(w, device=table.device)[:, None] * h_pad + idx).reshape(-1)
+    params = param_bytes(q, r) + (param_bytes(*signs) if signs else 0)
+    n_bytes = key_bytes(spec.schema, chunks.shape[0]) + params + out_bytes
+    return (n_bytes + 4 * int(torch.unique(cells).numel()),
+            params + out_bytes + nbytes(chunks) + 32 * int(torch.unique(cells // 8).numel()))
 
 
 class AllGlobal:
@@ -626,13 +651,26 @@ def turnstile_path(spec, hspec, cs_params, stream, seed):
         n_warm = len(grids.calls)
         hh_k, t_desc = wall(lambda: descend(kh.cs_state(), True))
         rows_k, t_rows = wall(lambda: answer_rows(hspec, kh.cs_state(), hh_k[0]))
+        before_query = dict(_cuda.LAUNCHES)
         est_k, t_query = wall(lambda: ks.query(queries))
+        before_rows = dict(_cuda.LAUNCHES)
+        qrows_k, t_qrows = wall(lambda: ks.query_rows(queries))
         launches = dict(_cuda.LAUNCHES)
     log(f"turnstile path launches: {launches}; K9m grid shapes (P, C): {grids.shapes()}")
     for name, kid in (("sketch_update_signed", "K6"), ("sketch_query_signed", "K7"),
+                      ("sketch_query_signed_median", "K7m"),
                       ("hier_update_signed", "K8"), ("hier_query_signed_median", "K9m"),
                       ("hier_query_signed", "K9")):
         check(launches[name] > 0, f"{kid} ({name}) launched on the turnstile path")
+    check(before_rows["sketch_query_signed_median"] == before_query["sketch_query_signed_median"]
+          + 1 and before_rows["sketch_query_signed"] == before_query["sketch_query_signed"],
+          "the signed point queries took one K7m launch and no K7 launch")
+    check(launches["sketch_query_signed"] == before_rows["sketch_query_signed"] + 1
+          and launches["sketch_query_signed_median"] == before_rows["sketch_query_signed_median"],
+          "query_rows took one K7 launch")
+    check(np.array_equal(cs.median_rows(torch.from_numpy(qrows_k)).numpy().view(np.int32),
+                         est_k.view(np.int32)),
+          "median_rows of K7's rows equals the K7m estimates bit for bit")
     check(len(grids.calls) == launches["hier_query_signed_median"] == 2 * n_warm,
           "every K9m call of the turnstile path was recorded, the same grids in both "
           "descents")
@@ -693,6 +731,7 @@ def turnstile_path(spec, hspec, cs_params, stream, seed):
            "flat_ingest_s": t_flat, "flat_ingest_rows_per_s": items.shape[0] / t_flat,
            "descent_ms": t_desc * 1e3, "descent_launches": n_warm,
            "answer_rows_ms": t_rows * 1e3, "query65536_ms": t_query * 1e3,
+           "query_rows65536_ms": t_qrows * 1e3,
            "plain_ingest_s": t_plain, "plain_descent_ms": t_desc_plain * 1e3}
     del plain_h, plain_f
     return kh, ks, (items, freqs, queries), launches, grids, e2e
@@ -708,7 +747,8 @@ def accuracy_path(stream, seed):
     count-min, equal-sketch, mod-sketch and the selected spec built over
     the whole stream linearly (K1) and conservatively (K5) from one draw,
     and queried (K2).  Returns (the mod-sketch's conservative sketch, the
-    linear sketches by name, launches, e2e)."""
+    linear sketches by name, launches, e2e, and K2's calls recorded with a
+    label each -- spec, query set, linear or conservative -- and the spec)."""
     rng = np.random.default_rng((seed, 13))
     s_items, s_freqs = stream.sample(SAMPLE, rng)
     draw = seeded_draw(seed)
@@ -724,31 +764,36 @@ def accuracy_path(stream, seed):
     qsets = {"top-500": stream.top_k_queries(N_QUERIES),
              "random-500": stream.random_k_queries(N_QUERIES, rng)}
     _cuda.reset_launches()
-    rows, built, linear = {}, {}, {}
-    for name, spec in specs.items():
-        params = draw(0, spec)
-        lin = KernelSketch(spec, params, block_b=BLOCK)
-        cons = KernelSketch(spec, params, block_b=BLOCK, mode="conservative")
-        check(scu.residency(W_ACC, cons.h_pad, 4) == "shared",
-              f"{name}: the {W_ACC} x {cons.h_pad} int32 table takes K5's shared route")
-        _, t_lin = wall(lambda: lin.update(stream.items, stream.freqs))
-        _, t_cons = wall(lambda: cons.update(stream.items, stream.freqs))
-        check(bool((cons.table <= lin.table).all()),
-              f"{name}: every conservative cell <= its linear cell")
-        errs = {}
-        for qname, (qi, qf) in qsets.items():
-            e_lin, e_cons = lin.query(qi), cons.query(qi)
-            check(bool(np.all(qf <= e_cons)) and bool(np.all(e_cons <= e_lin)),
-                  f"{name} {qname}: true <= conservative <= linear on every query")
-            errs[qname] = {"linear": observed_error(e_lin, qf),
-                           "conservative": observed_error(e_cons, qf)}
-        rows[name] = {"spec": spec.describe(), "errors": errs,
-                      "linear_ingest_s": t_lin, "conservative_ingest_s": t_cons}
-        log(f"  {name:13s} " + "  ".join(
-            f"{q}: linear {e['linear']:.4f} conservative {e['conservative']:.4f}"
-            for q, e in errs.items()) + f"   ({spec.describe()})")
-        built[name], linear[name] = cons, lin
-    launches = dict(_cuda.LAUNCHES)
+    rows, built, linear, k2_labels = {}, {}, {}, []
+    with Recorded(kops, "sketch_query") as k2_calls:
+        for name, spec in specs.items():
+            params = draw(0, spec)
+            lin = KernelSketch(spec, params, block_b=BLOCK)
+            cons = KernelSketch(spec, params, block_b=BLOCK, mode="conservative")
+            check(scu.residency(W_ACC, cons.h_pad, 4) == "shared",
+                  f"{name}: the {W_ACC} x {cons.h_pad} int32 table takes K5's shared route")
+            _, t_lin = wall(lambda: lin.update(stream.items, stream.freqs))
+            _, t_cons = wall(lambda: cons.update(stream.items, stream.freqs))
+            check(bool((cons.table <= lin.table).all()),
+                  f"{name}: every conservative cell <= its linear cell")
+            errs = {}
+            for qname, (qi, qf) in qsets.items():
+                e_lin, e_cons = lin.query(qi), cons.query(qi)
+                k2_labels += [(f"{name} {qname} {kind}", spec)
+                              for kind in ("linear", "conservative")]
+                check(bool(np.all(qf <= e_cons)) and bool(np.all(e_cons <= e_lin)),
+                      f"{name} {qname}: true <= conservative <= linear on every query")
+                errs[qname] = {"linear": observed_error(e_lin, qf),
+                               "conservative": observed_error(e_cons, qf)}
+            rows[name] = {"spec": spec.describe(), "errors": errs,
+                          "linear_ingest_s": t_lin, "conservative_ingest_s": t_cons}
+            log(f"  {name:13s} " + "  ".join(
+                f"{q}: linear {e['linear']:.4f} conservative {e['conservative']:.4f}"
+                for q, e in errs.items()) + f"   ({spec.describe()})")
+            built[name], linear[name] = cons, lin
+        launches = dict(_cuda.LAUNCHES)
+    check(len(k2_calls.calls) == len(k2_labels) == launches["sketch_query"],
+          "every K2 call of the accuracy path was recorded")
     log(f"accuracy path launches: {launches}")
     for kname, kid in (("sketch_update", "K1"), ("sketch_update_conservative", "K5"),
                        ("sketch_query", "K2")):
@@ -756,7 +801,7 @@ def accuracy_path(stream, seed):
     e2e = {"sample_rows": int(s_items.shape[0]), "sample_mass": int(s_freqs.sum()),
            "choose_s": t_choose, "choice": result.choice, "sigma": result.sigma,
            "mod_ranges": [a, b], "specs": rows}
-    return built["mod-sketch"], linear, launches, e2e
+    return built["mod-sketch"], linear, launches, e2e, (k2_calls, k2_labels)
 
 
 def conservative_path(spec, params, stream, thr, exact_items, lin_answer, lin_state,
@@ -1245,6 +1290,59 @@ def k1_by_shape(kr, stream, acc_sketches, ks, bigram) -> dict:
     return out
 
 
+def point_lanes(w: int, n: int) -> int:
+    """The lanes a query takes in K2, K7 and K7m at w rows and n queries."""
+    return sq.point_lanes(w, n, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def point_probes(kr, spec, chunks, q, r) -> dict:
+    """What bounds K2 on a block of queries: the same keys and params into a
+    zero flat table that fits L2 (the same schema and partition, ranges cut
+    to L2_RANGES), timed with L2 evicted first and with the table read into
+    L2 first."""
+    small = sk.mod_sketch_spec(spec.schema, spec.partition, L2_RANGES, spec.width)
+    plan = make_plan(small)
+    table = torch.zeros((spec.width, su.padded_table_size(small.table_size, 512)),
+                        dtype=torch.int32, device=chunks.device)
+    out = {"l2_table_cells": table.numel(),
+           "l2_table_cold_ms": cold_ms(lambda: sq.sketch_query(plan, table, chunks, q, r), 100,
+                                       kr.evict),
+           "l2_table_resident_ms": cold_ms(lambda: sq.sketch_query(plan, table, chunks, q, r),
+                                           100, lambda: (kr.evict(), table.sum()))}
+    del table
+    return out
+
+
+def k2_by_shape(kr, recorded) -> dict:
+    """K2 at each of the accuracy path's recorded calls (500 queries into a
+    [5, 4,096] table): bit for bit with the plain version; cold and device
+    ms (L2 evicted), the bytes and sector bounds; and the sum over the
+    calls of the device time."""
+    calls, labels = recorded
+    out = {}
+    for call, (label, spec) in zip(calls.calls, labels):
+        plan, table, chunks, q, r = call
+        err = max_abs_err(sq.sketch_query(*call), sq.sketch_query_ref(*call))
+        check(err == 0, f"K2 on the accuracy path's {label} bit-identical to its plain "
+              f"version ({err})")
+        n_bytes, sector_bytes = point_query_bytes(spec, plan, table, chunks, q, r,
+                                                  out_bytes=4 * chunks.shape[0])
+
+        def k2(call=call):
+            sq.sketch_query(*call)
+
+        out[label] = {"w": table.shape[0], "h_pad": table.shape[1],
+                      "queries": chunks.shape[0],
+                      "lanes": point_lanes(table.shape[0], chunks.shape[0]), "max_abs_err": err,
+                      "ms": cold_ms(k2, 100, kr.evict),
+                      "device_ms": kernel_device_ms(k2, "sk_query_kernel", 20, kr.evict),
+                      "bytes_bound_ms": n_bytes / MEM_BYTES_PER_S * 1e3,
+                      "sector_bound_ms": sector_bytes / MEM_BYTES_PER_S * 1e3}
+    total = sum(e["device_ms"] for e in out.values() if e["device_ms"])
+    log(f"K2 by shape: {json.dumps(out)}; sum of device ms {total:.5f}")
+    return {"calls": out, "launches_x_device_ms": total}
+
+
 def kernel_rows(kr, hspec, eng, ks, stream, grids):
     dev = torch.device(DEVICE)
     q, r = ks.params.q, ks.params.r
@@ -1382,18 +1480,20 @@ def kernel_rows(kr, hspec, eng, ks, stream, grids):
     rng = np.random.default_rng(2)
     qitems = stream.items[rng.choice(stream.items.shape[0], BLOCK, replace=False)]
     qchunks = ks.spec.schema.module_chunks(as_index_tensor(qitems, dev))
-    idx = all_indices(plan, qchunks, q, r)
-    touched = int(torch.unique(
-        (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)).numel())
+    n_bytes, sector_bytes = point_query_bytes(ks.spec, plan, flat_table, qchunks, q, r,
+                                              out_bytes=4 * BLOCK)
     kr.add("sketch_query", "sk_query_kernel",
            err=max_abs_err(sq.sketch_query(plan, flat_table, qchunks, q, r),
                            sq.sketch_query_ref(plan, flat_table, qchunks, q, r)),
            call=lambda: sq.sketch_query(plan, flat_table, qchunks, q, r),
            plain=lambda: sq.sketch_query_ref(plan, flat_table, qchunks, q, r), library=None,
-           n_bytes=key_bytes(ks.spec.schema, BLOCK) + param_bytes(q, r) + 4 * BLOCK
-           + 4 * touched,
-           n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
+           n_bytes=n_bytes, n_ops=hash_ops(plan, BLOCK) + 2 * w * BLOCK,
            shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
+    row = kr.rows[-1]
+    row["sector_bound_ms"] = sector_bytes / MEM_BYTES_PER_S * 1e3
+    row["lanes"] = point_lanes(w, BLOCK)
+    row["bound_probes"] = point_probes(kr, ks.spec, qchunks, q, r)
+    log(f"K2 lanes {row['lanes']}; bound probes {row['bound_probes']}")
 
 
 def signed_values(bits, level: int, f: torch.Tensor) -> torch.Tensor:
@@ -1571,22 +1671,34 @@ def signed_kernel_rows(kr, hspec, kh, ks, turnstile, grids, stream, seed):
     kr.rows.append(row)
     del scratch
 
+    # K7 / K7m: a block of signed point queries, the rows (K7, the path's
+    # query_rows) and their median (K7m, the path's query), each also
+    # against the sector bound; K7m also bit for bit against median_rows of
+    # K7's rows, and beside the time of K7 then median_rows, the signed
+    # query before K7m
     qchunks = ks.spec.schema.module_chunks(as_index_tensor(queries, dev))
-    idx = all_indices(plan, qchunks, q, r)
-    touched = int(torch.unique(
-        (torch.arange(w, device=dev)[:, None] * h_pad + idx).reshape(-1)).numel())
-    kr.add("sketch_query_signed", "sk_query_signed_kernel",
-           err=max_abs_err(
-               sq.sketch_query_signed(plan, flat_table, qchunks, q, r, s_q, s_r),
-               sq.sketch_query_signed_ref(plan, flat_table, qchunks, q, r, s_q, s_r)),
-           call=lambda: sq.sketch_query_signed(plan, flat_table, qchunks, q, r, s_q, s_r),
-           plain=lambda: sq.sketch_query_signed_ref(plan, flat_table, qchunks, q, r,
-                                                    s_q, s_r),
-           library=None,
-           n_bytes=key_bytes(ks.spec.schema, BLOCK) + param_bytes(q, r)
-           + param_bytes(s_q, s_r) + 4 * w * BLOCK + 4 * touched,
-           n_ops=2 * hash_ops(plan, BLOCK) + 2 * w * BLOCK,
-           shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
+    args = (plan, flat_table, qchunks, q, r, s_q, s_r)
+    for name, symbol, kernel, plain, out_bytes, n_ops in (
+            ("sketch_query_signed", "sk_query_signed_kernel", sq.sketch_query_signed,
+             sq.sketch_query_signed_ref, 4 * w * BLOCK,
+             2 * hash_ops(plan, BLOCK) + 2 * w * BLOCK),
+            ("sketch_query_signed_median", "sk_query_signed_median_kernel",
+             sq.sketch_query_signed_median, sq.sketch_query_signed_median_ref, 4 * BLOCK,
+             2 * hash_ops(plan, BLOCK) + (2 * w + w * (w - 1)) * BLOCK)):
+        n_bytes, sector_bytes = point_query_bytes(ks.spec, plan, flat_table, qchunks, q, r,
+                                                  (s_q, s_r), out_bytes)
+        kr.add(name, symbol, err=max_abs_err(kernel(*args), plain(*args)),
+               call=lambda kernel=kernel: kernel(*args), plain=lambda plain=plain: plain(*args),
+               library=None, n_bytes=n_bytes, n_ops=n_ops,
+               shape=f"Q={BLOCK} w={w} h_pad={h_pad}")
+        kr.rows[-1]["sector_bound_ms"] = sector_bytes / MEM_BYTES_PER_S * 1e3
+        kr.rows[-1]["lanes"] = point_lanes(w, BLOCK)
+    check(torch.equal(sq.sketch_query_signed_median(*args).view(torch.int32),
+                      cs.median_rows(sq.sketch_query_signed(*args)).view(torch.int32)),
+          "K7m equals median_rows of K7's rows bit for bit")
+    kr.rows[-1]["k7_then_median_rows_ms"] = cold_ms(
+        lambda: cs.median_rows(sq.sketch_query_signed(*args)), 100, kr.evict)
+    log(f"K7 then median_rows: {kr.rows[-1]['k7_then_median_rows_ms']:.5f} ms cold")
 
 
 def probe_step_ms(evict, n_cells: int = 0, steps: int = BLOCK) -> float:
@@ -2068,7 +2180,7 @@ def main(argv=None) -> int:
         spec, hspec, cs_params, stream, args.seed)
     e2e["turnstile"] = turn_e2e
 
-    acc_ks, acc_linear, acc_launches, acc_e2e = accuracy_path(stream, args.seed)
+    acc_ks, acc_linear, acc_launches, acc_e2e, acc_k2 = accuracy_path(stream, args.seed)
     e2e["accuracy"] = acc_e2e
     ep_c, ks_c, cons_launches, cons_e2e = conservative_path(
         spec, params, stream, thr, exact_items, main_answer, eng.backend.state, ks)
@@ -2091,7 +2203,7 @@ def main(argv=None) -> int:
     kr = KernelRows({**main_launches,
                      "sketch_update": sum(launches["sketch_update"] for launches in (
                          flat_launches, acc_launches, train_launches)),
-                     "sketch_query": flat_launches["sketch_query"],
+                     "sketch_query": flat_launches["sketch_query"] + acc_launches["sketch_query"],
                      **{k: v for k, v in turn_launches.items()
                         if k.endswith(("_signed", "_signed_median"))},
                      "conservative_fold": cons_launches["conservative_fold"],
@@ -2107,6 +2219,11 @@ def main(argv=None) -> int:
                               "accuracy": acc_launches["sketch_update"],
                               "training": train_launches["sketch_update"]}
     k1["by_shape"] = k1_by_shape(kr, stream, acc_linear, ks, bigram)
+    k2 = next(row for row in kr.rows if row["name"] == "sketch_query")
+    k2["launches_by_path"] = {"flat": flat_launches["sketch_query"],
+                              "accuracy": acc_launches["sketch_query"]}
+    k2["by_shape"] = k2_by_shape(kr, acc_k2)
+    del acc_k2
     del bigram
     signed_kernel_rows(kr, hspec, kh_s, ks_s, turnstile, sgrids, stream, args.seed)
     conservative_kernel_rows(kr, hspec, ep_c, ks_c, acc_ks, stream)

@@ -23,7 +23,8 @@ multiply values in float32 and the product is cast to the table's dtype
 float32 tables on the card with K8f, in one launch for all levels.  The
 kernels (``kernels/ops.py`` ``mode="signed"``, K6-K9) multiply in int32
 and are held to the same results below 2^24; K9m, the signed descent's
-query, also takes the median over rows in its launch.  Hash params are
+query, and K7m, the signed flat sketch's, also take the median over rows
+in their launch.  Hash params are
 int64 tensors, as in core/sketch.py; a torch generator cannot reproduce
 the reference's ``jax.random`` draw, so shared params cross as arrays
 (``repro_torch.interop``).
@@ -99,8 +100,8 @@ def median_rows(rows: torch.Tensor) -> torch.Tensor:
     one row).  ``torch.median`` would return the lower middle row instead.
     A column that holds a NaN has median NaN, as in ``jnp.median``: min and
     max both carry NaN, and in a sorting network every input reaches every
-    output.  K9m (``kernels/hier_query.py``) runs the same network in
-    registers.  No sort: nothing but w float32 rows is allocated.
+    output.  K9m and K7m (``kernels/hier_query.py``,
+    ``kernels/sketch_query.py``) run the same network in registers.  No sort: nothing but w float32 rows is allocated.
     """
     x = list(rows.to(torch.float32).unbind(0))
     w = len(x)

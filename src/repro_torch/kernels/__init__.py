@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels for the sketch hot path (K0-K4, the signed
-K6-K9 and K9m, and the conservative K5/K5i in ``csrc/``), their plain
+K6-K9, K7m and K9m, and the conservative K5/K5i in ``csrc/``), their plain
 PyTorch versions, and the wrappers in ops.py.
 
 The wrappers ``sketch_update``, ``sketch_query`` and ``hier_update`` share

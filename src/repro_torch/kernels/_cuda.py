@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sketch_kernels.cu", "signed_kernels.cu", "conservative_kernels.cu")
-HEADERS = ("hashes.cuh", "hier_fold.cuh", "hier_query.cuh")
+HEADERS = ("hashes.cuh", "hier_fold.cuh", "hier_query.cuh", "point_query.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -38,7 +38,7 @@ MAX_LEVELS = 16
 
 LAUNCHES: Dict[str, int] = {
     "sketch_update": 0, "sketch_query": 0, "hier_update": 0, "hier_query": 0,
-    "sketch_update_signed": 0, "sketch_query_signed": 0,
+    "sketch_update_signed": 0, "sketch_query_signed": 0, "sketch_query_signed_median": 0,
     "hier_update_signed": 0, "hier_query_signed": 0, "hier_query_signed_median": 0,
     "sketch_update_conservative": 0, "conservative_fold": 0,
     "sketch_update_f32": 0, "hier_update_f32": 0,
@@ -184,14 +184,16 @@ def _declare(lib) -> None:
     sigs = {
         "sk_sketch_update": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i64, vp],
         "sk_sketch_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i64, vp],
-        "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp],
+        "sk_sketch_query": [vp, vp, i64, i32, vp, i64, vp, vp, vp, i32, vp],
         "sk_hier_update": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64, vp],
         "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64,
                                vp],
         "sk_hier_query": [vp, i64, i64, i32, vp, i64, vp, i64, i64, i64, i64, vp, vp],
         "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_update_signed_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
-        "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, vp],
+        "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, i32, vp],
+        "sk_sketch_query_signed_median": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, i32,
+                                          vp],
         "sk_hier_update_signed": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, u32,
                                   i32, i64, i64, vp],
         "sk_hier_update_signed_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp,
@@ -246,7 +248,7 @@ def require(cond: bool, msg: str) -> None:
 def require_table_dtype(table: torch.Tensor, kernel: str,
                         dtypes=(torch.int32,)) -> None:
     """The kernel's table types: int32 and float32 for the folds (K1, K3,
-    K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K9, K9m), as
+    K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K7m, K9, K9m), as
     the reference's query kernels."""
     require(table.dtype in dtypes,
             f"{kernel}: the CUDA kernel takes "
@@ -279,10 +281,10 @@ def require_on(device: torch.device, kernel: str, **tensors) -> None:
 def require_hash_inputs(kernel: str, plan, table: torch.Tensor,
                         chunks: torch.Tensor, q: torch.Tensor,
                         r: torch.Tensor, dtypes=(torch.int32,), signs=()) -> None:
-    """Checks shared by the kernels that hash in place (K1-K3, K5-K8): a
-    contiguous [w, cols] table of one of ``dtypes``, int64 chunks [B, C]
+    """Checks shared by the kernels that hash in place (K1-K3, K5-K8, K7m):
+    a contiguous [w, cols] table of one of ``dtypes``, int64 chunks [B, C]
     and params q [w, C] / r [w, m] on the table's device, matching
-    ``plan``.  The signed kernels (K6-K8) pass their sign params as
+    ``plan``.  The signed kernels (K6-K8, K7m) pass their sign params as
     ``signs`` (sq, sr), held to q's and r's rules."""
     require_table_dtype(table, kernel, dtypes)
     require_on(table.device, kernel, table=table, chunks=chunks, q=q, r=r)

@@ -212,7 +212,7 @@ __device__ Stage<T> stage_at(unsigned char* p, int w, int cap) {
   return s;
 }
 
-// K5's cells: composite_index (K0) of each (row, item) from the keys'
+// K5's cells: the cell index (K0) of each (row, item) from the keys'
 // chunks, in hashes.cuh's fused form (the chunks' low halves in registers
 // when the key has at most kRegChunks of them, `% range` as a multiply and a
 // shift), one lane per item.

@@ -1,5 +1,6 @@
-// K0: the composite Carter-Wegman cell index, as a __device__ helper, and
-// K0s: the packed signed-mode sign bits beside it.
+// K0: the composite Carter-Wegman cell index, and K0s: the packed
+// signed-mode sign bits beside it, as one __device__ helper that computes
+// both in one pass (index_and_sign_bits, at the end of this file).
 //
 // K0 replaces src/repro/kernels/hashes.py `row_indices` (inlined in every
 // Pallas kernel body there).  One row's cell index of one key is
@@ -11,17 +12,20 @@
 // to 64 of them sum below 2^53, so a uint64 sum with ONE reduction at the end
 // is exact (the semantics of core/hashing.py `cw_hash_np`); the two forms are
 // equal mod P31, hence bit-identical.  The reduction is a Mersenne fold, not
-// a 64-bit division, and `% range_j` runs in 32 bits because the folded value
-// is below 2^31.
+// a 64-bit division, and `% range_j` a multiply and a shift, because the
+// folded value is below 2^31.
+//
+// K0s replaces src/repro/kernels/hashes.py `row_sign_bits` and
+// `signs_from_bits` (inlined in the signed Pallas kernels).  One CW pass per
+// group under the sign params; bit j of the result is the XOR of the hash
+// parities of groups 0..j, i.e. the sign of the level-j prefix (1 = -1).  The
+// parity is taken of the canonical residue in [0, P31) -- the low bit of an
+// unreduced 64-bit sum would be another bit.
 //
 // The plan is a small struct passed by value as a __grid_constant__ kernel
-// parameter: nothing about the spec is specialised at compile time.
-//
-// composite_index and composite_sign_bits are the plain forms, one pass
-// each over 64-bit params and chunks.  The folds (K3, K8, K6 and their
-// float32 bodies) take the fused form at the end of this file,
-// index_and_sign_bits: one pass for both, 32 x 32 -> 64-bit products, and
-// `% range` as a multiply and a shift.
+// parameter: nothing about the spec is specialised at compile time.  Every
+// kernel that hashes a key (K1-K3, K5-K8, K7m and the float32 folds) calls
+// index_and_sign_bits.
 #pragma once
 
 #include <cstdint>
@@ -46,55 +50,6 @@ struct LevelsC {
   uint32_t divs[SK_MAX_LEVELS];
   int64_t offsets[SK_MAX_LEVELS];
 };
-
-__device__ __forceinline__ uint32_t sk_mod_p31(uint64_t x) {
-  const uint64_t P = 0x7FFFFFFFull;
-  x = (x >> 31) + (x & P);  // < 2^32 for x < 2^62
-  x = (x >> 31) + (x & P);  // <= 2^31
-  return (uint32_t)(x >= P ? x - P : x);
-}
-
-// Cell index of the key whose chunks start at `x`, for the row whose params
-// start at `q` (total_chunks entries) and `r` (n_groups entries).  Callers
-// guarantee the table size is below 2^31, so the sum fits uint32.
-__device__ __forceinline__ uint32_t composite_index(const IndexPlanC& plan,
-                                                    const int64_t* __restrict__ x,
-                                                    const int64_t* __restrict__ q,
-                                                    const int64_t* __restrict__ r) {
-  uint32_t idx = 0;
-  for (int j = 0; j < plan.n_groups; ++j) {
-    uint64_t acc = (uint64_t)r[j];
-    for (int t = plan.group_start[j]; t < plan.group_start[j + 1]; ++t) {
-      const int c = plan.cols[t];
-      acc += (uint64_t)q[c] * (uint64_t)x[c];
-    }
-    idx += (sk_mod_p31(acc) % plan.ranges[j]) * plan.strides[j];
-  }
-  return idx;
-}
-
-// K0s replaces src/repro/kernels/hashes.py `row_sign_bits` and
-// `signs_from_bits` (inlined in the signed Pallas kernels).  One CW pass per
-// group under the sign params; bit j of the result is the XOR of the hash
-// parities of groups 0..j, i.e. the sign of the level-j prefix (1 = -1).  The
-// parity is taken of the canonical residue in [0, P31) that sk_mod_p31
-// returns -- the low bit of an unreduced 64-bit sum would be another bit.
-__device__ __forceinline__ uint32_t composite_sign_bits(const IndexPlanC& plan,
-                                                        const int64_t* __restrict__ x,
-                                                        const int64_t* __restrict__ sq,
-                                                        const int64_t* __restrict__ sr) {
-  uint32_t bits = 0, cum = 0;
-  for (int j = 0; j < plan.n_groups; ++j) {
-    uint64_t acc = (uint64_t)sr[j];
-    for (int t = plan.group_start[j]; t < plan.group_start[j + 1]; ++t) {
-      const int c = plan.cols[t];
-      acc += (uint64_t)sq[c] * (uint64_t)x[c];
-    }
-    cum ^= sk_mod_p31(acc) & 1u;
-    bits |= cum << j;
-  }
-  return bits;
-}
 
 // v or -v as the sign bit says, in two's complement (no signed overflow).
 __device__ __forceinline__ int32_t sk_apply_sign(int32_t v, uint32_t negative) {
@@ -137,8 +92,8 @@ inline HashDivsC make_hash_divs(const IndexPlanC& plan) {
   return divs;
 }
 
-// x mod P31 in [0, P31) for x < 2^53, as sk_mod_p31, the second fold in 32
-// bits: (x >> 31) + (x & P31) is below 2^32.
+// x mod P31 in [0, P31) for x < 2^53: two Mersenne folds, the second in 32
+// bits, since (x >> 31) + (x & P31) is below 2^32.
 __device__ __forceinline__ uint32_t mod_p31_53(uint64_t x) {
   const uint32_t P = 0x7FFFFFFFu;
   uint32_t y = (uint32_t)(x >> 31) + ((uint32_t)x & P);
@@ -163,10 +118,11 @@ inline bool chunks_in_registers(const IndexPlanC& plan) {
   return fits;
 }
 
-// composite_index (K0) of one row, and when kSigned composite_sign_bits
-// (K0s) beside it, bit for bit, in one pass over the key's chunks: each
-// product is one 32 x 32 -> 64-bit multiply, the sums stay below 2^53, and
-// `% range` is div_by's multiply and shift.  Unsigned, sq and sr are never
+// K0's cell index of one row of the key, and when kSigned K0s's sign bits
+// beside it, in one pass over the key's chunks (x[c] at the chunk column c;
+// q, r the row's bucket params, sq, sr its sign params): each product is
+// one 32 x 32 -> 64-bit multiply, the sums stay below 2^53, and `% range`
+// is div_by's multiply and shift.  Unsigned, sq and sr are never
 // read and `bits` stays 0.  kChunks > 0: chunk t (group-major order) is
 // xr[t], and every group has a chunk, so group j ends at chunk
 // group_start[j+1] - 1.

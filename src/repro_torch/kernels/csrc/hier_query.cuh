@@ -1,7 +1,8 @@
 // The candidate-grid queries, one body for K4 (the Count-Min minimum), K9
 // (the signed rows) and K9m (K9 with the median over rows fused into the
 // launch), and their launcher.  Included by sketch_kernels.cu (K4) and
-// signed_kernels.cu (K9, K9m).
+// signed_kernels.cu (K9, K9m), through point_query.cuh, whose flat point
+// queries (K2, K7, K7m) take their outputs from this body's `emit`.
 //
 // K4 replaces src/repro/kernels/hier_query.py `hier_candidate_query`
 // (`_hier_kernel`) and, with Q requests flattened onto the prefix axis,
@@ -68,6 +69,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "hier_fold.cuh"   // sk_fold::opt_in_smem
 
@@ -224,6 +226,27 @@ __device__ __forceinline__ float midpoint(float lo, float hi) {
   return __fmul_rn(__fadd_rn(lo, hi), 0.5f);
 }
 
+// The runtime-w median of value(0) .. value(w - 1): the order statistics
+// (w - 1) / 2 and w / 2 taken by rank (w^2 comparisons, each value
+// recomputed), then rounded as the unrolled network's.
+template <typename Value>
+__device__ __forceinline__ float median_by_rank(int w, Value value) {
+  const int lo_rank = (w - 1) / 2, hi_rank = w / 2;
+  float lo = 0.0f, hi = 0.0f;
+  for (int j = 0; j < w; ++j) {
+    const float xj = value(j);
+    int less = 0, leq = 0;
+    for (int i = 0; i < w; ++i) {
+      const float xi = value(i);
+      less += xi < xj;
+      leq += xi <= xj;
+    }
+    if (less <= lo_rank && lo_rank < leq) lo = xj;
+    if (less <= hi_rank && hi_rank < leq) hi = xj;
+  }
+  return (w & 1) ? lo : midpoint(lo, hi);
+}
+
 // Runtime w: row k's signed value of lane (p, c), its partials reloaded.
 __device__ __forceinline__ float signed_value(const QueryArgs& a, const int32_t* win,
                                               int k, int64_t p, int64_t c) {
@@ -321,21 +344,8 @@ __device__ __forceinline__ void hier_query(const QueryArgs& a) {
     if (a.span > 0) stage_windows(a, w, p, win, bar);
     for (int64_t c = c0 + threadIdx.x; c < c_end; c += blockDim.x) {
       if constexpr (kOut == kOutMedian) {
-        // the order statistics (w - 1) / 2 and w / 2, by rank
-        const int lo_rank = (w - 1) / 2, hi_rank = w / 2;
-        float lo = 0.0f, hi = 0.0f;
-        for (int j = 0; j < w; ++j) {
-          const float xj = signed_value(a, win, j, p, c);
-          int less = 0, leq = 0;
-          for (int i = 0; i < w; ++i) {
-            const float xi = signed_value(a, win, i, p, c);
-            less += xi < xj;
-            leq += xi <= xj;
-          }
-          if (less <= lo_rank && lo_rank < leq) lo = xj;
-          if (less <= hi_rank && hi_rank < leq) hi = xj;
-        }
-        static_cast<float*>(a.out)[p * a.C + c] = (w & 1) ? lo : midpoint(lo, hi);
+        static_cast<float*>(a.out)[p * a.C + c] =
+            median_by_rank(w, [&](int k) { return signed_value(a, win, k, p, c); });
       } else {
         int32_t best = INT_MAX;
         for (int k = 0; k < w; ++k) {
@@ -388,20 +398,27 @@ QueryKernel query_kernel() {
   }
 }
 
-template <int kOut>
-QueryKernel query_kernel_for(int w) {
+// make(std::integral_constant<int, kW>{}) with kW = w for w = 1 to
+// kUnrolledRows (the unrolled instances), else kW = 0 (the runtime loop).
+template <typename Make>
+auto by_rows(int w, Make make) {
   static_assert(kUnrolledRows == 8, "one case a row count below");
   switch (w) {
-    case 1: return query_kernel<kOut, 1>();
-    case 2: return query_kernel<kOut, 2>();
-    case 3: return query_kernel<kOut, 3>();
-    case 4: return query_kernel<kOut, 4>();
-    case 5: return query_kernel<kOut, 5>();
-    case 6: return query_kernel<kOut, 6>();
-    case 7: return query_kernel<kOut, 7>();
-    case 8: return query_kernel<kOut, 8>();
-    default: return query_kernel<kOut, 0>();
+    case 1: return make(std::integral_constant<int, 1>{});
+    case 2: return make(std::integral_constant<int, 2>{});
+    case 3: return make(std::integral_constant<int, 3>{});
+    case 4: return make(std::integral_constant<int, 4>{});
+    case 5: return make(std::integral_constant<int, 5>{});
+    case 6: return make(std::integral_constant<int, 6>{});
+    case 7: return make(std::integral_constant<int, 7>{});
+    case 8: return make(std::integral_constant<int, 8>{});
+    default: return make(std::integral_constant<int, 0>{});
   }
+}
+
+template <int kOut>
+QueryKernel query_kernel_for(int w) {
+  return by_rows(w, [](auto kw) { return query_kernel<kOut, decltype(kw)::value>(); });
 }
 
 // Launches K4, K9 or K9m on the caller's stream.  `span` > 0 is the window

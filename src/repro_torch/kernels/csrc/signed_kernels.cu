@@ -1,7 +1,8 @@
-// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K9m,
-// K6f, K8f), with a plain C interface for ctypes.  K8's body, shared with
-// K3, lives in hier_fold.cuh; K9's and K9m's, shared with K4, in
-// hier_query.cuh.  Built beside sketch_kernels.cu into
+// Hand-written Hopper kernels for the signed (Count-Sketch) path (K6-K9, K7m,
+// K9m, K6f, K8f), with a plain C interface for ctypes.  K8's body, shared
+// with K3, lives in hier_fold.cuh; K9's and K9m's, shared with K4, in
+// hier_query.cuh; K7's and K7m's, shared with K2, in point_query.cuh.
+// Built beside sketch_kernels.cu into
 // one shared library by repro_torch/kernels/_cuda.py:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
@@ -15,13 +16,13 @@
 // kernels multiply the +-1 sign into 12-bit frequency limbs before a one-hot
 // f32 matmul on the MXU, and gather through 16-bit table limbs.  None of
 // that carries over.  The sign is one bit of the packed parities
-// (composite_sign_bits, K0s, or in the folds the fused index_and_sign_bits),
+// (K0s, computed beside the cell by hashes.cuh's index_and_sign_bits),
 // applied to an int32 value in two's complement;
 // an int32 atomicAdd is exact and two's-complement addition associative, so
 // any order of atomics gives the jnp scatter's table, wraparound included.
-// K7 and K9 write the signed rows and leave the median over rows to the
-// caller, as the reference's kernels do; K9m, the descent's query, takes the
-// median in registers (hier_query.cuh).
+// K7 and K9 write the signed rows, as the reference's kernels do; K7m, the
+// flat sketch's query, and K9m, the descent's, take the median over rows in
+// registers (point_query.cuh, hier_query.cuh).
 //
 // The folds K6 and K8 are templates on the table type.  On int32 tables the
 // frequencies are int32 of either sign.  On float32 tables (K6f, K8f: the
@@ -31,7 +32,8 @@
 // a float atomicAdd: any order of them equals the plain version bit for bit
 // while every cell's partial sums are integers below 2^24, and agrees within
 // float32 rounding otherwise (the reference's contract, hier_update.py:35-38).
-// K7, K9 and K9m read int32 tables only, as the reference's query kernels do.
+// K7, K7m, K9 and K9m read int32 tables only, as the reference's query
+// kernels do.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype); sign
 // partials float32 +-1.
@@ -43,6 +45,7 @@
 #include "hashes.cuh"
 #include "hier_fold.cuh"
 #include "hier_query.cuh"
+#include "point_query.cuh"
 
 namespace {
 
@@ -56,7 +59,7 @@ constexpr int kThreads = 256;
 // The first design ran one thread per (row, key), gridDim.y = w: a key's
 // chunks, value and params were read once per row, w times, as 64-bit
 // values; the cell and the sign were two Carter-Wegman passes
-// (composite_index, composite_sign_bits) of 64 x 64-bit products, each group
+// (the cell's and the sign's) of 64 x 64-bit products, each group
 // ending in a 32-bit division by a runtime range.  On the turnstile block
 // (65,536 keys, w = 4, a [4, 4096^2] int32 table of 268 MB) it took 0.02335
 // ms with L2 evicted, 1.010x `index_add_` of the same signed values
@@ -115,31 +118,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K7 replaces src/repro/kernels/sketch_query.py `sketch_query_signed_pallas`
-// (`_query_kernel_signed`).  out[k, b] = table[k, idx_k(b)] * s_k(b), one
-// thread per (row k, query b).
-// Bound: one random 4-byte read per (row, query) from a table larger than L2,
-// plus the coalesced int32 [w, Q] write.  The design hashes cell and sign in
-// registers; nothing but the signed value reaches memory.
-__global__ void sk_query_signed_kernel(const __grid_constant__ IndexPlanC plan,
-                                       const int32_t* __restrict__ table, int64_t h_pad,
-                                       const int64_t* __restrict__ chunks, int64_t n,
-                                       const int64_t* __restrict__ q,
-                                       const int64_t* __restrict__ r,
-                                       const int64_t* __restrict__ sq,
-                                       const int64_t* __restrict__ sr,
-                                       int32_t* __restrict__ out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t k = blockIdx.y;
-  if (b >= n) return;
-  const int64_t* x = chunks + b * plan.total_chunks;
-  const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
-                                       r + k * plan.n_groups);
-  const uint32_t bits = composite_sign_bits(plan, x, sq + k * plan.total_chunks,
-                                            sr + k * plan.n_groups);
-  out[k * n + b] = sk_apply_sign(table[k * h_pad + idx], (bits >> (plan.n_groups - 1)) & 1u);
-}
-
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <typename T>
@@ -173,15 +151,22 @@ int sk_sketch_update_signed_f32(const IndexPlanC* plan, float* table, int64_t h_
   return launch_update_signed(plan, table, h_pad, w, chunks, freqs, n, q, r, sq, sr, stream);
 }
 
+// K7 and K7m: point_query.cuh's body, the signed rows and their median.
 int sk_sketch_query_signed(const IndexPlanC* plan, const int32_t* table, int64_t h_pad,
                            int32_t w, const int64_t* chunks, int64_t n, const int64_t* q,
                            const int64_t* r, const int64_t* sq, const int64_t* sr,
-                           int32_t* out, void* stream) {
-  if (n <= 0) return 0;
-  dim3 grid(blocks_for(n), (unsigned)w);
-  sk_query_signed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      *plan, table, h_pad, chunks, n, q, r, sq, sr, out);
-  return (int)cudaGetLastError();
+                           int32_t* out, int32_t lanes, void* stream) {
+  const sk_query::PointArgs a{table, h_pad, w, chunks, n, q, r, sq, sr, out};
+  return sk_query::launch_point_query<sk_query::kOutRows>(*plan, a, lanes, stream);
+}
+
+int sk_sketch_query_signed_median(const IndexPlanC* plan, const int32_t* table,
+                                  int64_t h_pad, int32_t w, const int64_t* chunks, int64_t n,
+                                  const int64_t* q, const int64_t* r, const int64_t* sq,
+                                  const int64_t* sr, float* out, int32_t lanes,
+                                  void* stream) {
+  const sk_query::PointArgs a{table, h_pad, w, chunks, n, q, r, sq, sr, out};
+  return sk_query::launch_point_query<sk_query::kOutMedian>(*plan, a, lanes, stream);
 }
 
 int sk_hier_update_signed(const IndexPlanC* plan, const LevelsC* levels, int32_t* table,

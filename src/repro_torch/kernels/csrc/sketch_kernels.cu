@@ -25,7 +25,8 @@
 // order, so float32 tables equal the plain version bit for bit only while
 // every cell's partial sums are exact (integers below 2^24), the reference's
 // own contract (hier_update.py:35-38).  K2 and K4 read int32 tables only, as
-// the reference's query kernels do.
+// the reference's query kernels do; K4's body is hier_query.cuh's, K2's
+// point_query.cuh's.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype).
 
@@ -37,35 +38,9 @@
 #include "hashes.cuh"
 #include "hier_fold.cuh"
 #include "hier_query.cuh"
+#include "point_query.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// K2 replaces src/repro/kernels/sketch_query.py `sketch_query_pallas`
-// (`_query_kernel`).  out[b] = min_k table[k, idx_k(b)], one thread per query.
-// Bound: w random 4-byte reads per query from a table larger than L2.  The
-// design keeps the row minimum in a register, so the [w, Q] per-row estimates
-// the TPU kernel wrote out never reach memory.
-__global__ void sk_query_kernel(const __grid_constant__ IndexPlanC plan,
-                                const int32_t* __restrict__ table, int64_t h_pad,
-                                int32_t w, const int64_t* __restrict__ chunks, int64_t n,
-                                const int64_t* __restrict__ q,
-                                const int64_t* __restrict__ r,
-                                int32_t* __restrict__ out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  const int64_t* x = chunks + b * plan.total_chunks;
-  int32_t best = INT_MAX;
-  for (int64_t k = 0; k < w; ++k) {
-    const uint32_t idx = composite_index(plan, x, q + k * plan.total_chunks,
-                                         r + k * plan.n_groups);
-    best = min(best, table[k * h_pad + idx]);
-  }
-  out[b] = best;
-}
-
-unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 // K1 replaces src/repro/kernels/sketch_update.py `sketch_update_pallas`
 // (`_update_kernel_int`; as K1f, `_update_kernel_f32`): table[k, idx_k(b)] +=
@@ -79,7 +54,7 @@ unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads
 // every index below 2^31 unchanged; the instance skips it.
 //
 // What bounds it: latency and the random atomics, as the first design (one
-// thread per (row, key), gridDim.y = w, composite_index, one global atomic
+// thread per (row, key), gridDim.y = w, a 64-bit hash, one global atomic
 // each) was bounded.  Into the flat path's [4, 2^24] table a block is
 // 262,144 random atomics over a table larger than L2; into the accuracy
 // path's [5, 4,096] tables 327,680 atomics land on 20,480 cells, and a
@@ -139,13 +114,12 @@ int sk_sketch_update_f32(const IndexPlanC* plan, float* table, int64_t h_pad, in
                           stream);
 }
 
+// K2: point_query.cuh's body, the minimum over rows.
 int sk_sketch_query(const IndexPlanC* plan, const int32_t* table, int64_t h_pad, int32_t w,
                     const int64_t* chunks, int64_t n, const int64_t* q, const int64_t* r,
-                    int32_t* out, void* stream) {
-  if (n <= 0) return 0;
-  sk_query_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(*plan, table, h_pad, w,
-                                                                        chunks, n, q, r, out);
-  return (int)cudaGetLastError();
+                    int32_t* out, int32_t lanes, void* stream) {
+  const sk_query::PointArgs a{table, h_pad, w, chunks, n, q, r, nullptr, nullptr, out};
+  return sk_query::launch_point_query<sk_query::kOutMin>(*plan, a, lanes, stream);
 }
 
 int sk_hier_update(const IndexPlanC* plan, const LevelsC* levels, int32_t* table, int64_t cols,

@@ -1,12 +1,12 @@
 """Composite index computation shared by the update/query kernels.
 
 Port of ``repro/kernels/hashes.py``.  The CUDA twin of :func:`row_indices`
-is the ``composite_index`` device helper in ``csrc/hashes.cuh`` (K0), which
-every kernel inlines; the functions here are its plain PyTorch version and
-the static layout both sides read.  The signed-mode sign bits
-(:func:`row_sign_bits` / :func:`all_sign_bits`, and ``signs_from_bits``,
-shared with core/countsketch.py) are K0s, whose CUDA twin is the
-``composite_sign_bits`` helper beside ``composite_index``.
+(K0) and of the signed-mode sign bits (K0s: :func:`row_sign_bits` /
+:func:`all_sign_bits`, and ``signs_from_bits``, shared with
+core/countsketch.py) is the ``index_and_sign_bits`` device helper in
+``csrc/hashes.cuh``, which computes both in one pass and which every kernel
+that hashes inlines; the functions here are its plain PyTorch version and
+the static layout both sides read.
 """
 from __future__ import annotations
 

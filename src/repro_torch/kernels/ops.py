@@ -4,8 +4,9 @@ signed modes).
 Port of ``repro/kernels/ops.py``.  These adapt the ``SketchSpec`` /
 ``HierarchySpec`` API to the kernels: chunk extraction, the padded table
 layout, sub-blocking, and state interop with the plain paths.  On CUDA
-tensors every fold and query launches a hand-written kernel (K1-K3 and
-K6-K8 here; K4 and K9 through core/hierarchy.py and core/countsketch.py);
+tensors every fold and query launches a hand-written kernel (K1-K3, K6-K8
+and K7m here; K4, K9 and K9m through core/hierarchy.py and
+core/countsketch.py);
 on CPU tensors the same calls run the kernels' plain versions.  Linear
 and signed tables may be int32 or float32 (``dtype``): float32 folds
 launch K1f, K3f, K6f and K8f, and float32 frequencies are unconstrained.
@@ -45,7 +46,11 @@ from repro_torch.kernels.hier_update import (
     hier_update_signed,
     make_hier_plan,
 )
-from repro_torch.kernels.sketch_query import sketch_query, sketch_query_signed
+from repro_torch.kernels.sketch_query import (
+    sketch_query,
+    sketch_query_signed,
+    sketch_query_signed_median,
+)
 from repro_torch.kernels.sketch_update import (
     padded_table_size,
     sketch_update,
@@ -102,7 +107,7 @@ def _as_uint32(t: torch.Tensor) -> np.ndarray:
 
 class KernelSketch:
     """Flat sketch whose table lives padded for the kernels (K1/K2, K5/K2
-    in conservative mode, or K6/K7 in signed mode).
+    in conservative mode, or K6/K7m in signed mode, K7 for its rows).
 
     ``params``: a ``torch.Generator`` or, in place of the reference's jax
     key, the arrays of a draw -- ``(q, r)`` in linear mode, ``(q, r,
@@ -152,7 +157,7 @@ class KernelSketch:
         self._check_freqs(freqs)
         if items.shape[0] == 0:
             return
-        chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
+        chunks = self._chunks(items)
         f = sk.as_freqs(freqs, self.device).to(self.table.dtype)
         q, r = self.params
         for s in range(0, items.shape[0], self.block_b):
@@ -167,14 +172,19 @@ class KernelSketch:
 
     def query(self, items) -> np.ndarray:
         """Point estimates: min over rows, int32[Q] (linear and
-        conservative), or the unbiased median over signed rows, float32[Q]
-        (signed mode).  A float32 table is read as int32, as the
-        reference's query kernel casts it."""
+        conservative: K2), or the unbiased median over signed rows,
+        float32[Q] (signed mode: K7m, the rows and their median in one
+        launch, on int32 tables).  A float32 table is read as int32 by K2,
+        as the reference's query kernel casts it; a float32 signed table
+        takes the plain gather and ``median_rows``."""
         if self.mode == "signed":
-            return cs.median_rows(self._signed_rows(items)).cpu().numpy()
-        items = np.asarray(items, dtype=np.uint32)
-        chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
-        est = sketch_query(self.plan, self.table.to(torch.int32), chunks,
+            if self.table.dtype != torch.int32:
+                return cs.median_rows(self._signed_rows(items)).cpu().numpy()
+            est = sketch_query_signed_median(self.plan, self.table, self._chunks(items),
+                                             self.params.q, self.params.r,
+                                             self.cs_params.sign_q, self.cs_params.sign_r)
+            return est.cpu().numpy()
+        est = sketch_query(self.plan, self.table.to(torch.int32), self._chunks(items),
                            self.params.q, self.params.r)
         return est.cpu().numpy()
 
@@ -187,16 +197,19 @@ class KernelSketch:
                              "linear/conservative sketches use query()")
         return self._signed_rows(items).cpu().numpy()
 
+    def _chunks(self, items) -> torch.Tensor:
+        items = np.asarray(items, dtype=np.uint32)
+        return self.spec.schema.module_chunks(as_index_tensor(items, self.device))
+
     def _signed_rows(self, items) -> torch.Tensor:
         """K7 on int32 tables; float tables take the plain gather of
         ``countsketch.query_rows``, as the reference's do (its K7 reads
         int32 tables only)."""
-        items = np.asarray(items, dtype=np.uint32)
         if self.table.dtype != torch.int32:
+            items = np.asarray(items, dtype=np.uint32)
             return cs.query_rows(self.spec, self.cs_state(), items)[0]
-        chunks = self.spec.schema.module_chunks(as_index_tensor(items, self.device))
-        return sketch_query_signed(self.plan, self.table, chunks, self.params.q,
-                                   self.params.r, self.cs_params.sign_q,
+        return sketch_query_signed(self.plan, self.table, self._chunks(items),
+                                   self.params.q, self.params.r, self.cs_params.sign_q,
                                    self.cs_params.sign_r)
 
     def sharded_update(self, *args, **kwargs) -> None:

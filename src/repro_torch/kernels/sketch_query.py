@@ -1,19 +1,29 @@
-"""K2 and K7: point queries on a flat sketch table.
+"""K2, K7 and K7m: point queries on a flat sketch table.
 
-Port of ``repro/kernels/sketch_query.py`` (``sketch_query_pallas``).  The
-TPU kernel gathers through one-hot MXU contractions on 16-bit table limbs
-and leaves the row minimum to the wrapper; on Hopper the kernel
-(``sk_query_kernel`` in ``csrc/sketch_kernels.cu``) runs one thread per
-query, hashes each row, loads the cell and keeps the minimum in a register.
-:func:`sketch_query_ref` is its plain PyTorch version; the wrapper runs it
-only for tensors on the CPU.
+Port of ``repro/kernels/sketch_query.py``.  The TPU kernels gather through
+one-hot MXU contractions on 16-bit table limbs and leave the reduction over
+rows to the wrapper.  On Hopper the three run one body
+(``csrc/point_query.cuh``): a query's lanes hash the w rows of its key in
+registers and load the w cells, and its first lane writes
 
-K7 is the signed read of ``sketch_query_signed_pallas``: the per-row
-values ``table[k, idx_k] * s_k`` as int32[w, Q], from which the caller
-takes the median (rows keep the estimator bit-comparable to
-``core.countsketch.query_rows``).  Its kernel
-(``sk_query_signed_kernel`` in ``csrc/signed_kernels.cu``) runs one thread
-per (row, query); :func:`sketch_query_signed_ref` is its plain version.
+- K2 (``sketch_query``, ``sketch_query_pallas``): the minimum over rows,
+  int32[Q];
+- K7 (``sketch_query_signed``, ``sketch_query_signed_pallas``): the
+  signed rows ``table[k, idx_k] * s_k``, int32[w, Q], bit-comparable to
+  ``core.countsketch.query_rows``;
+- K7m (``sketch_query_signed_median``): the median over K7's rows,
+  float32[Q], equal to ``countsketch.median_rows`` of K7's rows bit for
+  bit, in the same launch (the reference takes this median after its
+  kernel).
+
+A query takes :func:`point_lanes` consecutive lanes of a warp, each
+hashing and loading some of its rows; the first gathers the cells by warp
+shuffles.  One lane a query covers all w rows (the flat paths' 65,536
+queries); the accuracy path's 500 take one lane a row.
+
+The ``*_ref`` functions are their plain PyTorch versions; the wrappers run
+them only for tensors on the CPU.  A CUDA tensor always launches the
+kernel, and a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -21,8 +31,66 @@ import ctypes
 
 import torch
 
+from repro_torch.core.countsketch import median_rows
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.hashes import IndexPlan, all_indices, all_sign_bits
+from repro_torch.kernels.hier_query import THREADS, UNROLLED_ROWS
+
+LANE_THREADS_PER_SM = 2 * THREADS
+
+
+def max_lanes(w: int) -> int:
+    """The most lanes a query may take: w rounded up to a power of two
+    while the kernels unroll w rows (1-8), else 1 (the runtime loop)."""
+    if w < 1 or w > UNROLLED_ROWS:
+        return 1
+    return 1 << (w - 1).bit_length()
+
+
+def point_lanes(w: int, n: int, sms: int) -> int:
+    """Lanes a query takes in K2, K7 and K7m: the most, up to
+    ``max_lanes(w)``, that keep the launch within LANE_THREADS_PER_SM
+    threads an SM.
+
+    One lane a query hashes its w rows one after another, each row's cell
+    load in flight while the next hashes; one lane a row hashes once
+    before its load, but reads the key and gathers the cells by shuffles
+    in every lane.  Few queries leave the card thinly filled, so their
+    rows spread over lanes; once the queries alone hold about two CTAs an
+    SM, more lanes only add key reads and shuffles (``tools/query_ab.py
+    --point``'s sweep, PERF.md: the flat paths' 65,536 queries take one
+    lane, the accuracy path's 500 at w = 5 take eight)."""
+    lanes = max_lanes(w)
+    while lanes > 1 and n * lanes > sms * LANE_THREADS_PER_SM:
+        lanes //= 2
+    return lanes
+
+
+def _launch(name: str, symbol: str, plan: IndexPlan, table: torch.Tensor,
+            chunks: torch.Tensor, q: torch.Tensor, r: torch.Tensor, signs,
+            shape, dtype) -> torch.Tensor:
+    """Check the inputs, launch K2, K7 or K7m into a new ``shape`` tensor of
+    ``dtype`` with the lanes :func:`point_lanes` picks, and count the
+    launch; raise if it fails (nothing falls back).  No query launches
+    nothing."""
+    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, signs=signs)
+    w, h_pad = table.shape
+    _cuda.require(plan.table_size <= h_pad,
+                  f"{name}: table width {h_pad} below the plan's {plan.table_size}")
+    out = torch.empty(shape, dtype=dtype, device=table.device)
+    n = chunks.shape[0]
+    if n == 0:
+        return out
+    lanes = point_lanes(w, n, _cuda.sm_count(table.device.index))
+    lib = _cuda.library()
+    with torch.cuda.device(table.device):
+        rc = getattr(lib, symbol)(
+            ctypes.byref(_cuda.plan_struct(plan)), table.data_ptr(), h_pad, w,
+            chunks.data_ptr(), n, q.data_ptr(), r.data_ptr(),
+            *(s.data_ptr() for s in signs), out.data_ptr(), lanes, _cuda.stream_of(table))
+    _cuda.check(rc, name)
+    _cuda.LAUNCHES[name] += 1
+    return out
 
 
 def sketch_query_ref(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
@@ -42,22 +110,8 @@ def sketch_query(plan: IndexPlan, table: torch.Tensor, chunks: torch.Tensor,
     """
     if not table.is_cuda:
         return sketch_query_ref(plan, table, chunks, q, r)
-    name = "sketch_query"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r)
-    w, h_pad = table.shape
-    _cuda.require(plan.table_size <= h_pad,
-                  f"{name}: table width {h_pad} below the plan's {plan.table_size}")
-    n = chunks.shape[0]
-    out = torch.empty((n,), dtype=torch.int32, device=table.device)
-    plan_c = _cuda.plan_struct(plan)
-    lib = _cuda.library()
-    with torch.cuda.device(table.device):
-        rc = lib.sk_sketch_query(
-            ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
-            n, q.data_ptr(), r.data_ptr(), out.data_ptr(), _cuda.stream_of(table))
-    _cuda.check(rc, name)
-    _cuda.LAUNCHES[name] += 1
-    return out
+    return _launch("sketch_query", "sk_sketch_query", plan, table, chunks, q, r, (),
+                   (chunks.shape[0],), torch.int32)
 
 
 def sketch_query_signed_ref(plan: IndexPlan, table: torch.Tensor,
@@ -75,8 +129,7 @@ def sketch_query_signed_ref(plan: IndexPlan, table: torch.Tensor,
 def sketch_query_signed(plan: IndexPlan, table: torch.Tensor,
                         chunks: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
                         sq: torch.Tensor, sr: torch.Tensor) -> torch.Tensor:
-    """Per-row signed estimates for Q queries: int32[w, Q] (the caller takes
-    the median).
+    """Per-row signed estimates for Q queries: int32[w, Q].
 
     table int32[w, h_pad]; chunks int64[Q, C]; q, sq int64[w, C]; r, sr
     int64[w, m].  CUDA tensors launch K7; CPU tensors take
@@ -84,20 +137,30 @@ def sketch_query_signed(plan: IndexPlan, table: torch.Tensor,
     """
     if not table.is_cuda:
         return sketch_query_signed_ref(plan, table, chunks, q, r, sq, sr)
-    name = "sketch_query_signed"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, signs=(sq, sr))
-    w, h_pad = table.shape
-    _cuda.require(plan.table_size <= h_pad,
-                  f"{name}: table width {h_pad} below the plan's {plan.table_size}")
-    n = chunks.shape[0]
-    out = torch.empty((w, n), dtype=torch.int32, device=table.device)
-    plan_c = _cuda.plan_struct(plan)
-    lib = _cuda.library()
-    with torch.cuda.device(table.device):
-        rc = lib.sk_sketch_query_signed(
-            ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
-            n, q.data_ptr(), r.data_ptr(), sq.data_ptr(), sr.data_ptr(),
-            out.data_ptr(), _cuda.stream_of(table))
-    _cuda.check(rc, name)
-    _cuda.LAUNCHES[name] += 1
-    return out
+    return _launch("sketch_query_signed", "sk_sketch_query_signed", plan, table, chunks,
+                   q, r, (sq, sr), (table.shape[0], chunks.shape[0]), torch.int32)
+
+
+def sketch_query_signed_median_ref(plan: IndexPlan, table: torch.Tensor,
+                                   chunks: torch.Tensor, q: torch.Tensor,
+                                   r: torch.Tensor, sq: torch.Tensor,
+                                   sr: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7m: ``median_rows`` of
+    :func:`sketch_query_signed_ref`, float32[Q]."""
+    return median_rows(sketch_query_signed_ref(plan, table, chunks, q, r, sq, sr))
+
+
+def sketch_query_signed_median(plan: IndexPlan, table: torch.Tensor,
+                               chunks: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+                               sq: torch.Tensor, sr: torch.Tensor) -> torch.Tensor:
+    """Median signed estimates for Q queries: float32[Q], ``median_rows``
+    of :func:`sketch_query_signed`.
+
+    Inputs as :func:`sketch_query_signed`.  CUDA tensors launch K7m, whose
+    result equals ``median_rows`` of K7's rows bit for bit; CPU tensors
+    take :func:`sketch_query_signed_median_ref`.
+    """
+    if not table.is_cuda:
+        return sketch_query_signed_median_ref(plan, table, chunks, q, r, sq, sr)
+    return _launch("sketch_query_signed_median", "sk_sketch_query_signed_median", plan,
+                   table, chunks, q, r, (sq, sr), (chunks.shape[0],), torch.float32)

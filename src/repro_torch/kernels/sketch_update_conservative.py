@@ -32,7 +32,7 @@ itself sits in shared memory when it fits beside the staging buffers
 same kernel body.
 
 * **K5** (:func:`sketch_update_conservative`) hashes each item with the
-  ``composite_index`` helper (K0) and folds it into a flat [w, h_pad]
+  fused hash of ``csrc/hashes.cuh`` (K0) and folds it into a flat [w, h_pad]
   table: the counterpart of the Pallas kernel.
 * **K5i** (:func:`conservative_fold_tables`) folds given indices (int64
   [w, B] per table) into every table of a hierarchy in one launch, one CTA

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K9, K5i, K9m, and the float32 folds K1f,
-K3f, K6f, K8f) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1-K9, K5i, K7m, K9m, and the float32 folds
+K1f, K3f, K6f, K8f) against their plain PyTorch versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
 on a machine that has one).  Inputs are made with numpy from a seed.  On
@@ -20,7 +20,9 @@ the flat fold (K1, K1f, the hierarchy body's one-level case) at spans of
 1 and 64 tiles, w = 1, 5 and 9, on blocks of mixed keys, of one source
 and of one key;
 the candidate-grid queries (K4, K9, K9m) on both routes for w = 1-9, on
-views whose windows start unaligned.
+views whose windows start unaligned; the flat point queries (K2, K7, K7m)
+for w = 1-9 with keys' chunks in registers and not, at one lane a query
+and one a row, on tables holding INT_MAX, INT_MIN and zeros.
 """
 import numpy as np
 import pytest
@@ -36,7 +38,7 @@ from repro_torch.kernels import hier_update as hu
 from repro_torch.kernels import sketch_query as sq
 from repro_torch.kernels import sketch_update as su
 from repro_torch.kernels import sketch_update_conservative as scu
-from repro_torch.kernels.hashes import make_plan
+from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
 from repro_torch.serving.sketch_engine import SketchServeEngine, SketchTopKEndpoint
 from repro_torch.streams import zipf_hh_workload
@@ -503,6 +505,136 @@ def test_k6_k7_signed_flat_sketch_match_plain(cuda, case, n):
     assert torch.equal(rows, sq.sketch_query_signed_ref(plan, got, chunks, q, r, s_q, s_r))
 
 
+# --------------------------------------------------------------------------
+# K2, K7, K7m: the flat point queries' lane
+# --------------------------------------------------------------------------
+
+INT_MIN, INT_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _point_case(w, n, chunks, seed, device):
+    """A flat spec of w rows over keys of 5 chunks (K2, K7 and K7m hold
+    them in registers) or of 10 (read from the chunk array), n query keys,
+    bucket and sign params, and an int32 table over the whole int32 range
+    with INT_MAX, INT_MIN and zeros planted: an INT_MIN cell under sign -1
+    wraps to INT_MIN in the kernels and in their plain versions alike."""
+    hspec = _many_chunks_hspec(w) if chunks == "array" else _hspec(w)
+    spec = hspec.levels[-1]
+    plan = make_plan(spec)
+    assert (plan.total_chunks <= 8) == (chunks == "registers")   # hashes.cuh kRegChunks
+    params = _signed_params(spec, seed, device)
+    items, _ = _signed_block(hspec, max(n, 1), seed + 1)
+    qchunks = _chunks(spec, items[:n], device)
+    rng = np.random.default_rng(seed + 2)
+    shape = (w, su.padded_table_size(spec.table_size, 128))
+    cells = rng.integers(INT_MIN, INT_MAX, shape, dtype=np.int64, endpoint=True)
+    planted = rng.random(shape)
+    cells[planted < 0.1] = INT_MAX
+    cells[(planted >= 0.1) & (planted < 0.2)] = INT_MIN
+    cells[(planted >= 0.2) & (planted < 0.3)] = 0
+    table = torch.from_numpy(cells.astype(np.int32)).to(device)
+    return plan, table, qchunks, (params.base.q, params.base.r, params.sign_q, params.sign_r)
+
+
+POINT_QUERIES = ("sketch_query", "sketch_query_signed", "sketch_query_signed_median")
+
+
+def _force_lanes(monkeypatch, lanes):
+    """K2/K7/K7m's lanes a query forced: "one" lane, the "max" (w rounded up
+    to a power of two), or the "rule"'s own pick."""
+    if lanes == "one":
+        monkeypatch.setattr(sq, "point_lanes", lambda w, n, sms: 1)
+    elif lanes == "max":
+        monkeypatch.setattr(sq, "point_lanes", lambda w, n, sms: sq.max_lanes(w))
+
+
+@pytest.mark.parametrize("lanes", ["rule", "one", "max"])
+@pytest.mark.parametrize("chunks", ["registers", "array"])
+@pytest.mark.parametrize("w", range(1, 10))
+def test_k2_k7_k7m_match_plain_for_every_w(cuda, monkeypatch, w, chunks, lanes):
+    """w = 1-8 run unrolled, 9 the runtime loop; one lane a query and one a
+    row; Q = 0 (no launch), 1, 257 (not a multiple of the CTA's 256
+    queries) and 5,003.  K7m also equals median_rows of K7's rows bit for
+    bit."""
+    _force_lanes(monkeypatch, lanes)
+    for n in (0, 1, 257, 5003):
+        plan, table, qchunks, (q, r, s_q, s_r) = _point_case(w, n, chunks, 90 + w, cuda)
+        n0 = dict(_cuda.LAUNCHES)
+        est = sq.sketch_query(plan, table, qchunks, q, r)
+        rows = sq.sketch_query_signed(plan, table, qchunks, q, r, s_q, s_r)
+        med = sq.sketch_query_signed_median(plan, table, qchunks, q, r, s_q, s_r)
+        for name in POINT_QUERIES:
+            assert _cuda.LAUNCHES[name] == n0[name] + (n > 0)
+        assert est.dtype == torch.int32 and est.shape == (n,)
+        assert torch.equal(est, sq.sketch_query_ref(plan, table, qchunks, q, r))
+        assert rows.dtype == torch.int32 and rows.shape == (w, n)
+        assert torch.equal(rows, sq.sketch_query_signed_ref(plan, table, qchunks, q, r,
+                                                            s_q, s_r))
+        assert med.dtype == torch.float32 and med.shape == (n,)
+        assert torch.equal(med.view(torch.int32), cs.median_rows(rows).view(torch.int32))
+        assert torch.equal(med.view(torch.int32), sq.sketch_query_signed_median_ref(
+            plan, table, qchunks, q, r, s_q, s_r).view(torch.int32))
+        if n == 5003:
+            cells = torch.gather(table, 1, all_indices(plan, qchunks, q, r))
+            bits = all_sign_bits(plan, qchunks, s_q, s_r) >> (len(plan.ranges) - 1)
+            for v in (INT_MAX, INT_MIN, 0):
+                assert bool((cells == v).any())
+            assert bool(((cells == INT_MIN) & (bits & 1 == 1)).any())
+
+
+@pytest.mark.parametrize("w,lanes", [(4, 3), (2, 4), (9, 2), (5, 16)])
+def test_point_queries_refuse_a_lane_count_they_cannot_take(cuda, monkeypatch, w, lanes):
+    """Lanes that are not a power of two up to w's are refused by the
+    launcher and raised on: nothing falls back to the plain version."""
+    plan, table, qchunks, (q, r, s_q, s_r) = _point_case(w, 300, "registers", 95, cuda)
+    monkeypatch.setattr(sq, "point_lanes", lambda *args: lanes)
+    n0 = dict(_cuda.LAUNCHES)
+    for call in (lambda: sq.sketch_query(plan, table, qchunks, q, r),
+                 lambda: sq.sketch_query_signed(plan, table, qchunks, q, r, s_q, s_r),
+                 lambda: sq.sketch_query_signed_median(plan, table, qchunks, q, r, s_q, s_r)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            call()
+    assert dict(_cuda.LAUNCHES) == n0
+
+
+def test_flat_queries_launch_k7m_for_signed_estimates_and_k2_for_minima(cuda):
+    """Signed ``query()`` on an int32 table takes one K7m launch and no K7
+    launch; ``query_rows()`` one K7 launch, whose rows' median is the
+    estimate bit for bit; linear and conservative ``query()`` one K2 launch
+    each.  Every answer equals the plain path's."""
+    hspec = _hspec(w=4)
+    spec = hspec.levels[-1]
+    params = _signed_params(spec, 80, cuda)
+    items, freqs = _signed_block(hspec, 3000, 81)
+    queries = items[:700]
+    ks = KernelSketch(spec, params, tile_h=128, device=cuda, mode="signed")
+    ks.update(items, freqs)
+    n0 = dict(_cuda.LAUNCHES)
+    est = ks.query(queries)
+    n1 = dict(_cuda.LAUNCHES)
+    rows = ks.query_rows(queries)
+    n2 = dict(_cuda.LAUNCHES)
+    assert n1["sketch_query_signed_median"] == n0["sketch_query_signed_median"] + 1
+    assert n1["sketch_query_signed"] == n0["sketch_query_signed"]
+    assert n2["sketch_query_signed"] == n1["sketch_query_signed"] + 1
+    assert n2["sketch_query_signed_median"] == n1["sketch_query_signed_median"]
+    assert est.dtype == np.float32 and est.shape == (700,)
+    np.testing.assert_array_equal(
+        cs.median_rows(torch.from_numpy(rows)).numpy().view(np.int32), est.view(np.int32))
+    plain = cs.update(spec, cs.init_state(spec, params, dtype=torch.int32, device=cuda),
+                      items, freqs)
+    np.testing.assert_array_equal(est, cs.query(spec, plain, queries).cpu().numpy())
+    for mode in ("linear", "conservative"):
+        kl = KernelSketch(spec, params.base, tile_h=128, device=cuda, mode=mode)
+        kl.update(items, np.abs(freqs))
+        n0 = dict(_cuda.LAUNCHES)
+        got = kl.query(queries)
+        assert _cuda.LAUNCHES["sketch_query"] == n0["sketch_query"] + 1
+        np.testing.assert_array_equal(
+            got, sq.sketch_query_ref(kl.plan, kl.table, _chunks(spec, queries, cuda),
+                                     kl.params.q, kl.params.r).cpu().numpy())
+
+
 def test_k8_signed_hierarchy_update_matches_plain(cuda):
     hspec = _hspec(w=4)
     hplan = hu.make_hier_plan(hspec, tile_h=128)
@@ -885,8 +1017,8 @@ def test_signed_path_kernel_equals_plain_on_card(cuda):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert all(_cuda.LAUNCHES[k] > 0 for k in (
-        "sketch_update_signed", "sketch_query_signed", "hier_update_signed",
-        "hier_query_signed_median"))
+        "sketch_update_signed", "sketch_query_signed", "sketch_query_signed_median",
+        "hier_update_signed", "hier_query_signed_median"))
 
 
 # --------------------------------------------------------------------------
