@@ -60,11 +60,38 @@ Phases, any failure of which exits non-zero:
    more gradient through every compressed leaf: exactly k distinct
    coordinates, ``corrected == dense + residual`` exactly, and K8f
    against its plain version on that real gradient within 2^-10 of the
-   sum of |v| per cell;
-3. hold each kernel (K1-K9, K7m, K9m, K5i, K1f, K3f, K6f, K8f) against its
-   plain version on the card at the shapes its path gives it (int32 and
-   integer-valued float32: bit-identical; K4, K9 and K9m on every grid
-   their paths launched, K4 on both routes, K9m also against the median of
+   sum of |v| per cell.  Then the windowed path: the main stream in 16
+   timestamped batches, two an epoch, through the DStream harness into a
+   ``WindowedTopKService`` on a ring of 4 epochs (8 epochs, four expiries),
+   once tumbling (int32, running sum), landmark (int32) and decay 0.9
+   (float32, lazy Horner), folds on K3 or K3f and descents on K4 or K4f
+   (the service's defaults on the card), each K4 grid replayed against its
+   plain version before the next ingest;
+   after each epoch the merged tables equal ``reference_window_state`` of
+   the live epochs bit for bit (host copies), no key at or above the
+   threshold is missed (tumbling, landmark), and ``heavy_hitters``/
+   ``topk(100)`` equal the plain grid's on host copies; the harness's ARE,
+   recall, precision and F2, ingest rows/s and query ms printed; one
+   ``SketchServeEngine`` over a tumbling twin with ``advance()`` between
+   epochs.  Then the re-tuning path: an endpoint on
+   ``benchmarks/migrate_bench.py``'s stale spec at h = 2^24, w = 4, behind
+   an engine with a range-search ``AutoTuner`` (sigma sketches on the
+   card), fed 16 blocks of 65,536 rows of a module-skew flip with
+   ``sync()`` after each; at least one migration cuts over, each cutover
+   leaves the endpoint equal bit for bit to a fresh endpoint on the new
+   spec fed the blocks since ``begin_migration``; every decision, the
+   ingest rows/s with the double-write window open and shut and the
+   cutover ingest's ms printed.  Then the extended accuracy path: FCM and
+   FMOD beside count-min (K1, K2) on ``ipv4_stream()`` at h = 4,096, w = 5
+   (FCM and FMOD within 5% of count-min or below; the three errors
+   printed) and on
+   the reference's Fig. 10 test stream (FMOD <= FCM <= count-min within
+   5%), the card's FCM tables equal to the host's, and the telecom stream
+   through K1 equal to the plain fold on the host;
+3. hold each kernel (K1-K9, K7m, K9m, K5i, K1f, K3f, K4f, K6f, K8f) against
+   its plain version on the card at the shapes its path gives it (int32 and
+   integer-valued float32: bit-identical; K4, K4f, K9 and K9m on every grid
+   their paths launched, K4 and K4f on both routes, K9m also against the median of
    K9's rows bit for bit, K7m against the median of K7's; K2 at each of
    its 16 accuracy-path calls; K8f at all 9 leaf shapes; K5 and
    K5i also on float32 tables fed non-integer frequencies, bit-identical),
@@ -87,7 +114,7 @@ Phases, any failure of which exits non-zero:
    K8f, K1, K6 and K6f beside probes of what bounds them (a finest level
    or a flat table that fits L2, all-zero values; for the flat folds also
    the adds a warp combine would save); K1 also at each of those shapes;
-   K4 also at every (P, C) the main path
+   K4 and K4f also at every (P, C) the main path and the decayed window
    launched (device time, and their sum over the launches) and at the
    largest, on the direct route too;
 5. drive the main path, the turnstile path, the conservative path and one
@@ -118,9 +145,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import tree as tr  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import countsketch as cs  # noqa: E402
+from repro_torch.core import window as win  # noqa: E402
+from repro_torch.core.fcm import FCM, fcm_spec, fmod_spec  # noqa: E402
 from repro_torch.core import hierarchy as hh  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import KeySchema, draw_hash_params_np  # noqa: E402
+from repro_torch.core.range_opt import optimal_ranges_mod2  # noqa: E402
 from repro_torch.core.selection import choose_sketch, seeded_draw  # noqa: E402
 from repro_torch.core.summary import SpaceSaving  # noqa: E402
 from repro_torch.device import as_index_tensor  # noqa: E402
@@ -134,14 +164,22 @@ from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving.autotune import AutoTuner, seeded_key_draw  # noqa: E402
+from repro_torch.serving.sharded_topk import threshold_descent_topk  # noqa: E402
 from repro_torch.serving.sketch_engine import (  # noqa: E402
     SketchServeEngine,
     SketchTopKEndpoint,
 )
+from repro_torch.serving.windowed_topk import WindowedTopKService  # noqa: E402
 from repro_torch.streams import (  # noqa: E402
+    DStreamHarness,
     exact_heavy_hitters,
     group_candidates,
+    ipv4_stream,
     observed_error,
+    skew_flip_batches,
+    telecom_stream,
+    timestamped_batches,
     zipf_graph_stream,
 )
 from repro_torch.training import grad_compression as gc  # noqa: E402
@@ -183,6 +221,18 @@ PLAIN_CHUNK = 1 << 25
 # K6/K6f's bound probe: the flat table's ranges cut so that it fits the
 # card's 50 MB L2 (4 x 2^20 int32 or float32 cells, 16 MB)
 L2_RANGES = (1024, 1024)
+# the windowed path: the main stream in 16 timestamped batches (its 16
+# blocks' worth), two an epoch, on a ring of 4 epochs: 8 epochs, four expiries
+WINDOW_EPOCHS, WINDOW_BATCHES, BATCHES_PER_EPOCH = 4, 16, 2
+WINDOW_MODES = (("tumbling", 1.0), ("landmark", 1.0), ("decay", 0.9))
+# the re-tuning path: benchmarks/migrate_bench.py's stale spec, (H // 64,
+# 64), at h = 2^24, fed 16 blocks of a module-skew flip
+RETUNE_H, RETUNE_BLOCKS = 1 << 24, 16
+# the reference's Fig. 10 test (tests/test_fcm_countsketch.py): its stream
+# and (h, w), where it asserts FMOD <= FCM <= count-min
+FIG10_STREAM = dict(n_src=20_000, n_tgt=60_000, n_edges=300_000, n_occurrences=1_500_000,
+                    s_src=0.7, s_tgt=0.7, seed=1)
+FIG10_HW = (2048, 6)
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -190,6 +240,9 @@ KERNELS = {
     "sketch_query": ("point_query.cuh", "src/repro/kernels/sketch_query.py:47"),
     "hier_update": ("hier_fold.cuh", "src/repro/kernels/hier_update.py:183"),
     "hier_query": ("hier_query.cuh", "src/repro/kernels/hier_query.py:53"),
+    # K4's body on float32 tables: no Pallas kernel computes this grid, the
+    # reference's jnp hier_candidate_query_ref on its float (decayed) tables
+    "hier_query_f32": ("hier_query.cuh", "src/repro/core/hierarchy.py:560"),
     "sketch_update_signed": ("signed_kernels.cu",
                              "src/repro/kernels/sketch_update.py:184"),
     "sketch_query_signed": ("point_query.cuh", "src/repro/kernels/sketch_query.py:114"),
@@ -1092,6 +1145,409 @@ def compression_checks(cfg, tcfg, state):
 # phases 3-4: each kernel against its plain version, timed, beside its bound
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the windowed, re-tuning and extended accuracy phases
+# --------------------------------------------------------------------------
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32 compared as its bits), on the host."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def cpu_state(state) -> hh.HierarchyState:
+    """A host copy of a HierarchyState (params and tables)."""
+    return hh.HierarchyState(states=tuple(
+        sk.SketchState(params=sk.SketchParams(q=s.params.q.cpu(), r=s.params.r.cpu()),
+                       table=s.table.cpu()) for s in state.states))
+
+
+class GridReplay:
+    """Records the K4 grids a path launches and, at each :meth:`check`,
+    holds them against the plain version on the rule's route and on the
+    direct route, then forgets them.  Call it while the tables still hold
+    what the grids read: before the next ingest or advance, since the
+    running window sum and the endpoint's tables are updated in place.
+    The replays' launches are taken back out of the counts."""
+
+    def __init__(self):
+        self.err, self.grids = 0.0, 0
+        self._rec = Recorded(hq, "hier_candidate_query")
+
+    def __enter__(self):
+        self._rec.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rec.__exit__(*exc)
+
+    def check(self) -> None:
+        rec = self._rec
+        if not rec.calls:
+            return
+        counts = dict(_cuda.LAUNCHES)
+        err = grid_replay_err(rec, rec._orig, hq.hier_candidate_query_ref)
+        with DirectRoute():
+            err = max(err, grid_replay_err(rec, rec._orig, hq.hier_candidate_query_ref))
+        _cuda.LAUNCHES.update(counts)
+        self.err, self.grids = max(self.err, err), self.grids + len(rec.calls)
+        rec.calls.clear()
+        rec.kwargs.clear()
+        rec.results.clear()
+
+
+def plain_answers(svc, thr: int):
+    """``heavy_hitters(thr)`` and ``topk(100)`` of a service's current state
+    with the plain grid, on host copies of its tables."""
+    host = cpu_state(svc.state())
+    cands = svc.candidates()
+
+    def hh_fn(t, candidates):
+        return hh.find_heavy_hitters(svc.hspec, host, t, candidates)
+
+    return hh_fn(thr, cands), threshold_descent_topk(
+        hh_fn, cands, 100, total=svc.total, n_modules=svc.wspec.base.schema.modularity)
+
+
+def live_epoch_blocks(batches, upto: int, mode: str):
+    """The live epochs' streams after batch ``upto`` (oldest first): one
+    (items, freqs) a batch, or for decay one a whole epoch."""
+    now = batches[upto].t
+    live = [b for b in batches[: upto + 1]
+            if mode == "landmark" or b.t > now - WINDOW_EPOCHS]
+    if mode != "decay":
+        return [(b.items, b.freqs) for b in live]
+    out = []
+    for t in sorted({b.t for b in live}):
+        part = [b for b in live if b.t == t]
+        out.append((np.concatenate([b.items for b in part]),
+                    np.concatenate([b.freqs for b in part])))
+    return out
+
+
+def window_mode_run(spec, params, batches, mode: str, decay: float, replay: GridReplay):
+    """One window mode over the timestamped batches through the DStream
+    harness, K3 or K3f folding and K4 or K4f scoring; after each epoch the
+    merged tables against ``reference_window_state`` of the live epochs
+    (host copies, bitwise), the harness's recall (tumbling, landmark: no
+    key at or above the threshold missed), and ``heavy_hitters``/``topk``
+    against the plain grid on host copies.  Every K4 grid is replayed
+    against its plain version before the next ingest.  Returns (service,
+    e2e)."""
+    svc = WindowedTopKService(spec, params, n_epochs=WINDOW_EPOCHS, window_mode=mode,
+                              decay=decay, max_candidates_per_group=POOL)
+    check(svc.use_kernel and svc.use_update_kernel,
+          f"{mode}: a service on the card takes the kernels by default")
+    harness = DStreamHarness(svc, phi=PHI)
+    ingest_s = [0.0]
+    fold = svc.ingest
+
+    def timed_ingest(items, freqs=None):
+        ingest_s[0] += wall(lambda: fold(items, freqs))[1]
+
+    svc.ingest = timed_ingest
+    hh_ms, top_ms, checks = [], [], 0
+    for b, batch in enumerate(batches):
+        report = harness.step(batch)
+        replay.check()
+        if b + 1 < len(batches) and batches[b + 1].t == batch.t:
+            continue
+        # the batch closed an epoch
+        want = win.reference_window_state(svc.wspec, params,
+                                          live_epoch_blocks(batches, b, mode), device="cpu")
+        got = svc.state()
+        check(all(bitwise_equal(g.table, w.table) for g, w in zip(got.states, want.states)),
+              f"{mode}: epoch {batch.t}'s merged tables equal reference_window_state of "
+              "the live epochs bit for bit")
+        del got, want
+        if mode != "decay":
+            check(report.recall == 1.0, f"{mode}: epoch {batch.t}: no key whose exact "
+                  f"window count is at or above the threshold is missed ({report.recall})")
+        thr = max(1, int(PHI * report.window_total))
+        ans_hh, t_hh = wall(lambda: svc.heavy_hitters(thr))
+        ans_top, t_top = wall(lambda: svc.topk(100))
+        hh_ms.append(t_hh * 1e3)
+        top_ms.append(t_top * 1e3)
+        p_hh, p_top = plain_answers(svc, thr)
+        check(same_answers(ans_hh, p_hh) and same_answers(ans_top, p_top),
+              f"{mode}: epoch {batch.t}: heavy_hitters and topk(100) equal the plain "
+              "grid's on host copies")
+        replay.check()
+        checks += 1
+    check(checks == batches[-1].t + 1, f"{mode}: checked after every epoch")
+    last = harness.reports[-1]
+    rows = sum(b.items.shape[0] for b in batches)
+    e2e = {"mode": mode, "decay": decay, "epochs": batches[-1].t + 1,
+           "ring": WINDOW_EPOCHS, "batches": len(batches),
+           "batch_rows": [int(b.items.shape[0]) for b in batches[:2]],
+           "ingest_s": ingest_s[0], "ingest_rows_per_s": rows / ingest_s[0],
+           "heavy_hitters_ms": hh_ms, "topk100_ms": top_ms,
+           "are_topk": last.are_topk, "recall": last.recall, "precision": last.precision,
+           "f2_rel_err": last.f2_rel_err,
+           "mean_are_topk": float(np.mean([r.are_topk for r in harness.reports])),
+           "min_recall": min(r.recall for r in harness.reports),
+           "min_precision": min(r.precision for r in harness.reports),
+           "mean_f2_rel_err": float(np.mean([r.f2_rel_err for r in harness.reports])),
+           "window_total": last.window_total, "window_distinct": last.window_distinct,
+           "table_gb": sum(t.numel() * t.element_size() for t in
+                           svc.wstate.ring + ((svc.wstate.retired,)
+                                              if svc.wstate.retired is not None else ())
+                           + ((svc._window_sum,) if svc.incremental else ())) / 1e9}
+    log(f"windowed {mode}: ARE {last.are_topk:.4f}, recall {last.recall}, precision "
+        f"{last.precision}, F2 rel err {last.f2_rel_err:.4f}; ingest "
+        f"{e2e['ingest_rows_per_s']:.0f} rows/s; heavy_hitters {np.mean(hh_ms):.2f} ms, "
+        f"topk(100) {np.mean(top_ms):.2f} ms (means over the epochs); "
+        f"{e2e['table_gb']:.3f} GB of tables")
+    svc.ingest = fold
+    return svc, e2e
+
+
+def windowed_engine_run(spec, params, batches, svc, replay: GridReplay) -> dict:
+    """The tumbling window behind one SketchServeEngine, ``advance()``
+    between epochs: every advance invalidates the snapshot, and the final
+    answers equal those of the harness's service on the same batches."""
+    twin = WindowedTopKService(spec, params, n_epochs=WINDOW_EPOCHS,
+                               max_candidates_per_group=POOL)
+    eng = SketchServeEngine(twin, max_staleness=0)
+    for b, batch in enumerate(batches):
+        if b and batch.t != batches[b - 1].t:
+            eng.advance()
+            check(eng._snap is None, "the engine's advance() invalidates its snapshot")
+        eng.ingest(batch.items, batch.freqs)
+    thr = max(1, int(PHI * svc.total))
+    got = [eng.heavy_hitters(thr), eng.topk(100)]
+    want = [svc.heavy_hitters(thr), svc.topk(100)]
+    replay.check()
+    check(all(same_answers(a, b) for a, b in zip(got, want)),
+          "the engine over the tumbling window answers as the service does")
+    return {"threshold": thr, "heavy_hitters_found": int(got[0][0].shape[0]),
+            "engine_staleness": eng.staleness}
+
+
+def windowed_path(spec, params, stream):
+    """The main stream in 16 timestamped batches, two an epoch, on a ring
+    of 4 epochs (8 epochs: four expiries), once for each window mode; the
+    decay run's K4f grids recorded, every K4 grid replayed against its
+    plain version as it goes.  Returns (launches per mode, K4f grids, K4's
+    replay, e2e)."""
+    batches = list(timestamped_batches(stream.items, stream.freqs, WINDOW_BATCHES,
+                                       batches_per_epoch=BATCHES_PER_EPOCH))
+    e2e, launches, f32_grids = {}, {}, None
+    replay = GridReplay()
+    for mode, decay in WINDOW_MODES:
+        t0 = time.perf_counter()
+        with Recorded(hq, "hier_candidate_query_f32") as grids, replay:
+            _cuda.reset_launches()
+            replayed = replay.grids
+            svc, e2e[mode] = window_mode_run(spec, params, batches, mode, decay, replay)
+            if mode == "tumbling":
+                e2e["engine"] = windowed_engine_run(spec, params, batches, svc, replay)
+            launches[mode] = dict(_cuda.LAUNCHES)
+        check(replay.grids - replayed == launches[mode]["hier_query"],
+              f"{mode}: every K4 grid of the window was replayed against its plain version")
+        e2e[mode]["phase_s"] = time.perf_counter() - t0
+        log(f"windowed {mode} launches: {launches[mode]}; {e2e[mode]['phase_s']:.1f} s "
+            "with its checks")
+        if mode == "decay":
+            check(launches[mode]["hier_update_f32"] > 0 and launches[mode]["hier_query_f32"] > 0,
+                  "K3f and K4f launched on the decayed window")
+            check(launches[mode]["hier_update"] == launches[mode]["hier_query"] == 0,
+                  "no int32 fold or grid ran on the decayed window")
+            check(len(grids.calls) == launches[mode]["hier_query_f32"],
+                  "every K4f call of the decayed window was recorded")
+            f32_grids = grids
+        else:
+            check(launches[mode]["hier_update"] > 0 and launches[mode]["hier_query"] > 0,
+                  f"K3 and K4 launched on the {mode} window")
+        del svc
+        torch.cuda.empty_cache()
+    check(replay.err == 0, f"every K4 grid of the windowed phase equals its plain "
+          f"version (max |err| {replay.err})")
+    return launches, f32_grids, replay, e2e
+
+
+def retune_path(seed):
+    """A SketchTopKEndpoint on benchmarks/migrate_bench.py's stale spec at
+    h = 2^24, w = 4, behind a SketchServeEngine with a range-search
+    AutoTuner, fed skew_flip_batches in 16 blocks of 65,536 rows with
+    ``sync()`` after each.  At least one migration cuts over; after each
+    cutover the endpoint equals, bit for bit, a fresh endpoint on the new
+    spec and params fed the blocks since ``begin_migration``."""
+    schema = KeySchema((1 << 32, 1 << 32))
+    stale = sk.mod_sketch_spec(schema, [(0,), (1,)], (RETUNE_H // 64, 64), WIDTH)
+    rng = np.random.default_rng((seed, 22))
+    params = (draw_hash_params_np(rng, (WIDTH, stale.schema.total_chunks)),
+              draw_hash_params_np(rng, (WIDTH, stale.n_groups)))
+    blocks = list(skew_flip_batches((1 << 32, 1 << 32), RETUNE_BLOCKS, BLOCK, seed=seed))
+    mass = int(blocks[0].freqs.sum())
+    draw = seeded_key_draw(seed)
+    ep = SketchTopKEndpoint(stale, params, max_candidates_per_group=POOL)
+    check(ep.use_kernel and ep._kh is not None,
+          "an endpoint on the card takes the kernels by default")
+    tuner = AutoTuner(ep, draw, retune_every=4 * mass, warmup=2 * mass,
+                      min_improvement=0.9, sample_k=256, min_threshold=1,
+                      search="ranges")
+    eng = SketchServeEngine(ep, max_staleness=0, tuner=tuner)
+    times = {"shut": [], "open": [], "cutover": []}
+    begun, cutovers, forced = None, [], None
+    twin_launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    replay = GridReplay().__enter__()
+    _cuda.reset_launches()
+    for b, blk in enumerate(blocks):
+        was = ep.migrating
+        _, secs = wall(lambda: eng.ingest(blk.items, blk.freqs))
+        kind = "cutover" if was and not ep.migrating else ("open" if was else "shut")
+        times[kind].append((int(blk.items.shape[0]), secs))
+        if kind == "cutover":
+            start, new_spec, new_params = begun
+            before = dict(_cuda.LAUNCHES)
+            fresh = SketchTopKEndpoint(new_spec, new_params, max_candidates_per_group=POOL)
+            for blk2 in blocks[start : b + 1]:
+                fresh.ingest(blk2.items, blk2.freqs)
+            sd_m, sd_f = ep.state_dict(), fresh.state_dict()
+            check(sd_m.keys() == sd_f.keys() and all(
+                sd_m[k].dtype == sd_f[k].dtype and np.array_equal(sd_m[k], sd_f[k])
+                for k in sd_m), f"after the cutover at block {b} the endpoint equals a "
+                "fresh endpoint on the new spec fed the same blocks, bit for bit")
+            for k, v in _cuda.LAUNCHES.items():
+                twin_launches[k] += v - before[k]
+            cutovers.append({"block": b, "begun_after_block": start - 1,
+                             "ranges": list(new_spec.ranges), "ms": secs * 1e3})
+            del fresh, sd_m, sd_f
+        n = len(tuner.decisions)
+        eng.sync()
+        replay.check()
+        if len(tuner.decisions) > n and tuner.decisions[-1].migrated:
+            d = tuner.decisions[-1]
+            spec_d = sk.SketchSpec(schema, d.proposed_partition, d.proposed_ranges, WIDTH)
+            begun = (b + 1, spec_d, draw((len(tuner.decisions), 2), spec_d))
+        if (b == len(blocks) - 3 and not cutovers and not ep.migrating
+                and tuner.decisions):
+            # the tuner declined every proposal: open the window on its last
+            # one, so the cutover runs all the same
+            d = tuner.decisions[-1]
+            spec_d = sk.SketchSpec(schema, d.proposed_partition or stale.partition,
+                                   d.proposed_ranges or stale.ranges, WIDTH)
+            forced = {"after_block": b, "reason": d.reason, "ranges": list(spec_d.ranges)}
+            begun = (b + 1, spec_d, draw((len(tuner.decisions), 2), spec_d))
+            ep.begin_migration(spec_d, begun[2], warmup=2 * mass)
+    launches = {k: v - twin_launches[k] for k, v in _cuda.LAUNCHES.items()}
+    decisions = [dataclasses.asdict(d) for d in tuner.decisions]
+    for d in decisions:
+        log(f"TuneDecision {d}")
+    check(len(cutovers) >= 1, "at least one migration cut over")
+    check(launches["hier_update"] > 0 and launches["hier_query"] > 0,
+          "K3 and K4 launched on the re-tuning path")
+    check(replay.grids == launches["hier_query"],
+          "every K4 grid of the re-tuning path was replayed against its plain version")
+    top = eng.topk(100)
+    replay.check()
+    replay.__exit__()
+    check(replay.err == 0, f"every K4 grid of the re-tuning path equals its plain "
+          f"version (max |err| {replay.err})")
+    check(top[0].shape == (100, 2) and bool(np.all(np.diff(top[1]) <= 0)),
+          "topk(100) after the re-tuning answers 100 keys by descending estimate")
+
+    def rate(kind):
+        rows, secs = sum(r for r, _ in times[kind]), sum(s for _, s in times[kind])
+        return rows / secs if secs else None
+
+    e2e = {"stale_ranges": list(stale.ranges), "blocks": len(blocks), "block_rows": BLOCK,
+           "decisions": decisions, "cutovers": cutovers, "forced": forced,
+           "final_ranges": list(ep.hspec.base.ranges),
+           "ingest_rows_per_s_window_shut": rate("shut"),
+           "ingest_rows_per_s_window_open": rate("open"),
+           "cutover_ingest_ms": [s * 1e3 for _, s in times["cutover"]],
+           "blocks_by_kind": {k: len(v) for k, v in times.items()}}
+    log(f"re-tuning launches: {launches}")
+    log(f"re-tuning: cutovers {cutovers}; forced {forced}; ingest rows/s with the "
+        f"double-write window shut {e2e['ingest_rows_per_s_window_shut']}, open "
+        f"{e2e['ingest_rows_per_s_window_open']}; cutover ingest ms "
+        f"{e2e['cutover_ingest_ms']}")
+    return launches, replay, e2e
+
+
+def fcm_pair(spec, params, stream, seed: int):
+    """An FCM on the card and its twin on the host, both fed the stream in
+    blocks of 2^15; their tables must be equal."""
+    card = FCM(spec, params, seed=seed)
+    host = FCM(spec, params, seed=seed, device="cpu")
+    for s in range(0, stream.items.shape[0], 1 << 15):
+        for f in (card, host):
+            f.update(stream.items[s : s + (1 << 15)], stream.freqs[s : s + (1 << 15)])
+    check(torch.equal(card.table.cpu(), host.table), "the card's FCM table equals the "
+          "same FCM run on the host")
+    return card
+
+
+def fig10_errors(stream, h: int, w: int, seed: int, what: str) -> dict:
+    """Count-min on K1/K2, FCM and FMOD (FMOD's ranges from a 3% sample, as
+    the reference's Fig. 10 test takes them) on ``stream``: their observed
+    errors on 500 random keys."""
+    rng = np.random.default_rng(0)
+    s_items, s_freqs = stream.sample(0.03, rng)
+    a, b = optimal_ranges_mod2(s_items, s_freqs, h)
+    draw = np.random.default_rng((seed, 10))
+    params = (draw_hash_params_np(draw, (w, stream.schema.total_chunks)),
+              draw_hash_params_np(draw, (w, 1)))
+    cm = KernelSketch(sk.count_min_spec(stream.schema, h, w), params, block_b=BLOCK)
+    cm.update(stream.items, stream.freqs)
+    fcm = fcm_pair(fcm_spec(stream.schema, h, w, mg_k=512), params, stream, seed)
+    fparams = (params[0], draw_hash_params_np(draw, (w, 2)))
+    fmod = fcm_pair(fmod_spec(stream.schema, [(0,), (1,)], (a, b), w, mg_k=512), fparams,
+                    stream, seed)
+    qi, qf = stream.random_k_queries(N_QUERIES, rng)
+    out = {"h": h, "w": w, "fmod_ranges": [a, b],
+           "count_min": observed_error(cm.query(qi), qf),
+           "fcm": observed_error(fcm.query(qi), qf),
+           "fmod": observed_error(fmod.query(qi), qf)}
+    log(f"{what}: observed error count-min {out['count_min']:.4f}, FCM {out['fcm']:.4f}, "
+        f"FMOD {out['fmod']:.4f} (FMOD ranges {a} x {b})")
+    return out
+
+
+def accuracy_extended_path(seed):
+    """The paper's remaining workloads: FCM and FMOD beside count-min (K1,
+    K2) on ipv4_stream() at its defaults, h = 4,096, w = 5, and on the
+    reference's Fig. 10 regime; the card's FCM tables equal the host's; the
+    telecom stream's arbitrary positive counts through a flat KernelSketch
+    on K1, held against the plain fold on the host."""
+    _cuda.reset_launches()
+    ipv4 = ipv4_stream()
+    e2e = {"ipv4": fig10_errors(ipv4, H_ACC, W_ACC, seed, "ipv4 (3M occurrences)")}
+    check(e2e["ipv4"]["fcm"] <= e2e["ipv4"]["count_min"] * 1.05
+          and e2e["ipv4"]["fmod"] <= e2e["ipv4"]["count_min"] * 1.05,
+          "ipv4: FCM's and FMOD's observed errors within 5% of count-min's or below")
+    regime = zipf_graph_stream(**FIG10_STREAM)
+    e2e["fig10_regime"] = fig10_errors(regime, *FIG10_HW, seed, "Fig. 10 regime")
+    r = e2e["fig10_regime"]
+    check(r["fcm"] <= r["count_min"] * 1.05 and r["fmod"] <= r["fcm"] * 1.05,
+          "Fig. 10 order in its regime: FMOD <= FCM <= count-min, within 5%")
+    tel = telecom_stream()
+    spec = sk.count_min_spec(tel.schema, H_ACC, W_ACC)
+    tparams = (draw_hash_params_np(np.random.default_rng((seed, 11)),
+                                   (W_ACC, tel.schema.total_chunks)),
+               draw_hash_params_np(np.random.default_rng((seed, 12)), (W_ACC, 1)))
+    card = KernelSketch(spec, tparams, block_b=BLOCK)
+    host = KernelSketch(spec, tparams, block_b=BLOCK, device="cpu")
+    card.update(tel.items, tel.freqs)
+    launches = dict(_cuda.LAUNCHES)
+    host.update(tel.items, tel.freqs)
+    check(torch.equal(card.table.cpu(), host.table),
+          "telecom: K1's table equals the plain fold's on the host")
+    e2e["telecom"] = {"rows": int(tel.items.shape[0]), "total": int(tel.total),
+                      "max_count": int(tel.freqs.max())}
+    log(f"extended accuracy launches: {launches}; telecom {e2e['telecom']}")
+    check(launches["sketch_update"] > 0 and launches["sketch_query"] > 0,
+          "K1 and K2 launched on the extended accuracy path")
+    return launches, e2e
+
+
+
 class KernelRows:
     """Holds each kernel against its plain version, times both and the
     library yardstick, and sets them beside the bound; collects the rows of
@@ -1176,6 +1632,64 @@ def query_route(call, kw) -> str:
     g = hq.query_geometry(view.shape[0], pp.shape[1], cp.shape[1], kw.get("span"),
                           torch.cuda.get_device_properties(0).multi_processor_count)
     return "window" if g.span else "direct"
+
+
+def grid_bytes(view, pp, cp) -> int:
+    """The bytes a candidate grid must move: its partials and output (4 B a
+    value, as the reference's uint32 partials) and each distinct cell it
+    reads (4-byte cells, int32 or float32)."""
+    w, p, c = view.shape[0], pp.shape[1], cp.shape[1]
+    return 4 * w * (p + c) + 4 * p * c + 4 * grid_touched(view, pp, cp)
+
+
+def grid_kernel_row(kr, name: str, symbol: str, kernel, grids) -> dict:
+    """A candidate-grid kernel's row (K4, K4f) over the grids a path
+    launched: each held against the plain version on the rule's route and
+    on the direct route; timed at the (P, C) launched most often (the
+    descent chunks each level's grid into max_batch // C prefixes a launch)
+    and at the largest, and on the device at every (P, C) launched."""
+    plain = hq.hier_candidate_query_ref
+    err = grid_replay_err(grids, kernel, plain)
+    with DirectRoute():
+        err = max(err, grid_replay_err(grids, kernel, plain))
+
+    def launch(call, kw):
+        return lambda: kernel(*call, **kw)
+
+    (p, c), (call, kw) = grids.most_launched()
+    view, pp, cp = call
+    w = view.shape[0]
+    row = kr.measure(name, symbol, err=err, call=launch(call, kw),
+                     plain=lambda: plain(*call), library=None,
+                     n_bytes=grid_bytes(view, pp, cp), n_ops=3 * w * p * c,
+                     shape=f"w={w} cols={view.shape[1]} {view.dtype}; "
+                     + grid_shape_note(grids, p, c))
+    with DirectRoute():
+        row["direct_route_ms"] = cold_ms(launch(call, kw), 100, kr.evict)
+    by_shape = {}
+    for (sp_, sc_), n in sorted(grids.shapes().items()):
+        a, k = grids.call_at((sp_, sc_))
+        by_shape[f"{sp_}x{sc_}"] = {
+            "launches": n, "route": query_route(a, k),
+            "device_ms": kernel_device_ms(launch(a, k), symbol, 20, kr.evict)}
+    row["by_shape"] = by_shape
+    row["launches_x_device_ms"] = sum(e["launches"] * e["device_ms"]
+                                      for e in by_shape.values() if e["device_ms"])
+    big = max(grids.shapes(), key=lambda s_: s_[0] * s_[1])
+    a, k = grids.call_at(big)
+    largest = {"shape": f"{big[0]}x{big[1]}", "route": query_route(a, k),
+               "ms": cold_ms(launch(a, k), 50, kr.evict),
+               "device_ms": kernel_device_ms(launch(a, k), symbol, 20, kr.evict),
+               "plain_ms": cold_ms(lambda: plain(*a), 5, kr.evict),
+               "bound_ms": bound_ms(grid_bytes(*a), 3 * w * big[0] * big[1])[0]}
+    with DirectRoute():
+        largest["direct_route_ms"] = cold_ms(launch(a, k), 50, kr.evict)
+        largest["direct_device_ms"] = kernel_device_ms(launch(a, k), symbol, 20, kr.evict)
+    row["largest"] = largest
+    log(f"{name} by (P, C): {by_shape}; sum of launches x device ms "
+        f"{row['launches_x_device_ms']:.5f}; direct route {row['direct_route_ms']:.5f} ms; "
+        f"largest {largest}")
+    return row
 
 
 def top_source_rows(items) -> int:
@@ -1402,57 +1916,9 @@ def kernel_rows(kr, hspec, eng, ks, stream, grids):
     kr.rows.append(row)
     del scratch, kh, chunks, flat, f_all, hchunks, hflat, hf_all
 
-    # K4: every grid the main path launched, each held against the plain
-    # version on the rule's route and on the direct route; timed at the
-    # (P, C) it launched most often (the descent chunks each level's grid
-    # into max_batch // C prefixes a launch) and at the largest, and on the
-    # device at every (P, C) it launched
-    err = grid_replay_err(grids, hq.hier_candidate_query, hq.hier_candidate_query_ref)
-    with DirectRoute():
-        err = max(err, grid_replay_err(grids, hq.hier_candidate_query,
-                                       hq.hier_candidate_query_ref))
-
-    def k4(call, kw):
-        return lambda: hq.hier_candidate_query(*call, **kw)
-
-    def k4_bytes(view, pp, cp):
-        w, p, c = view.shape[0], pp.shape[1], cp.shape[1]
-        return 4 * w * (p + c) + 4 * p * c + 4 * grid_touched(view, pp, cp)
-
-    (p, c), (call, kw) = grids.most_launched()
-    view, pp, cp = call
-    w = view.shape[0]
-    row = kr.measure("hier_query", "sk_hier_query_kernel", err=err, call=k4(call, kw),
-                     plain=lambda: hq.hier_candidate_query_ref(*call), library=None,
-                     n_bytes=k4_bytes(view, pp, cp), n_ops=3 * w * p * c,
-                     shape=f"w={w} cols={view.shape[1]}; " + grid_shape_note(grids, p, c))
-    with DirectRoute():
-        row["direct_route_ms"] = cold_ms(k4(call, kw), 100, kr.evict)
-    by_shape = {}
-    for (sp_, sc_), n in sorted(grids.shapes().items()):
-        a, k = grids.call_at((sp_, sc_))
-        by_shape[f"{sp_}x{sc_}"] = {
-            "launches": n, "route": query_route(a, k),
-            "device_ms": kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20, kr.evict)}
-    row["by_shape"] = by_shape
-    row["launches_x_device_ms"] = sum(e["launches"] * e["device_ms"]
-                                      for e in by_shape.values() if e["device_ms"])
-    big = max(grids.shapes(), key=lambda s_: s_[0] * s_[1])
-    a, k = grids.call_at(big)
-    largest = {"shape": f"{big[0]}x{big[1]}", "route": query_route(a, k),
-               "ms": cold_ms(k4(a, k), 50, kr.evict),
-               "device_ms": kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20, kr.evict),
-               "plain_ms": cold_ms(lambda: hq.hier_candidate_query_ref(*a), 5, kr.evict),
-               "bound_ms": bound_ms(k4_bytes(*a), 3 * w * big[0] * big[1])[0]}
-    with DirectRoute():
-        largest["direct_route_ms"] = cold_ms(k4(a, k), 50, kr.evict)
-        largest["direct_device_ms"] = kernel_device_ms(k4(a, k), "sk_hier_query_kernel", 20,
-                                                       kr.evict)
-    row["largest"] = largest
-    log(f"K4 by (P, C): {by_shape}; sum of launches x device ms "
-        f"{row['launches_x_device_ms']:.5f}; direct route {row['direct_route_ms']:.5f} ms; "
-        f"largest {largest}")
-    kr.rows.append(row)
+    # K4: every grid the main path launched
+    kr.rows.append(grid_kernel_row(kr, "hier_query", "sk_hier_query_kernel",
+                                   hq.hier_candidate_query, grids))
 
     # K1 / K2: the flat sketch's block fold and a block of point queries
     plan, flat_table = ks.plan, ks.table
@@ -2200,10 +2666,39 @@ def main(argv=None) -> int:
     del state
     torch.cuda.empty_cache()
 
+    win_launches, f32_grids, win_replay, e2e["windowed"] = windowed_path(spec, params, stream)
+    # K4f's row now: its grids hold the decayed window's merged buffers
+    k4f_row = grid_kernel_row(
+        KernelRows({"hier_query_f32": win_launches["decay"]["hier_query_f32"]}),
+        "hier_query_f32", "sk_hier_query_f32_kernel", hq.hier_candidate_query_f32, f32_grids)
+    del f32_grids
+    torch.cuda.empty_cache()
+    (retune_launches, retune_replay, e2e["retune"]), t_retune = wall(
+        lambda: retune_path(args.seed))
+    (ext_launches, e2e["accuracy_extended"]), t_ext = wall(
+        lambda: accuracy_extended_path(args.seed))
+    e2e["retune"]["phase_s"], e2e["accuracy_extended"]["phase_s"] = t_retune, t_ext
+    log(f"re-tuning phase {t_retune:.1f} s, extended accuracy phase {t_ext:.1f} s")
+    by_path = {
+        "hier_update": {"main": main_launches["hier_update"],
+                        "windowed": sum(v["hier_update"] for v in win_launches.values()),
+                        "retune": retune_launches["hier_update"]},
+        "hier_query": {"main": main_launches["hier_query"],
+                       "windowed": sum(v["hier_query"] for v in win_launches.values()),
+                       "retune": retune_launches["hier_query"]},
+        "hier_update_f32": {"float32": f32_launches["hier_update_f32"],
+                            "windowed": win_launches["decay"]["hier_update_f32"]},
+        "hier_query_f32": {"windowed": win_launches["decay"]["hier_query_f32"]},
+        "sketch_update": {"flat": flat_launches["sketch_update"],
+                          "accuracy": acc_launches["sketch_update"],
+                          "training": train_launches["sketch_update"],
+                          "accuracy_extended": ext_launches["sketch_update"]},
+        "sketch_query": {"flat": flat_launches["sketch_query"],
+                         "accuracy": acc_launches["sketch_query"],
+                         "accuracy_extended": ext_launches["sketch_query"]}}
+
     kr = KernelRows({**main_launches,
-                     "sketch_update": sum(launches["sketch_update"] for launches in (
-                         flat_launches, acc_launches, train_launches)),
-                     "sketch_query": flat_launches["sketch_query"] + acc_launches["sketch_query"],
+                     **{k: sum(v.values()) for k, v in by_path.items()},
                      **{k: v for k, v in turn_launches.items()
                         if k.endswith(("_signed", "_signed_median"))},
                      "conservative_fold": cons_launches["conservative_fold"],
@@ -2211,17 +2706,12 @@ def main(argv=None) -> int:
                          acc_launches["sketch_update_conservative"]
                          + cons_launches["sketch_update_conservative"]),
                      **{k: f32_launches[k] for k in (
-                         "sketch_update_f32", "hier_update_f32", "sketch_update_signed_f32")},
+                         "sketch_update_f32", "sketch_update_signed_f32")},
                      "hier_update_signed_f32": train_launches["hier_update_signed_f32"]})
     kernel_rows(kr, hspec, eng, ks, stream, grids)
     k1 = next(row for row in kr.rows if row["name"] == "sketch_update")
-    k1["launches_by_path"] = {"flat": flat_launches["sketch_update"],
-                              "accuracy": acc_launches["sketch_update"],
-                              "training": train_launches["sketch_update"]}
     k1["by_shape"] = k1_by_shape(kr, stream, acc_linear, ks, bigram)
     k2 = next(row for row in kr.rows if row["name"] == "sketch_query")
-    k2["launches_by_path"] = {"flat": flat_launches["sketch_query"],
-                              "accuracy": acc_launches["sketch_query"]}
     k2["by_shape"] = k2_by_shape(kr, acc_k2)
     del acc_k2
     del bigram
@@ -2231,6 +2721,16 @@ def main(argv=None) -> int:
         "accuracy": acc_launches["sketch_update_conservative"],
         "conservative": cons_launches["sketch_update_conservative"]}
     f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leaves)
+    kr.rows.append(k4f_row)
+    # K4's error over every grid it launched: the main path's, replayed
+    # above, and the windowed and re-tuning paths', replayed as they ran
+    k4 = next(row for row in kr.rows if row["name"] == "hier_query")
+    k4["max_abs_err"] = max(k4["max_abs_err"], win_replay.err, retune_replay.err)
+    k4["grids_replayed_by_path"] = {"main": len(grids.calls), "windowed": win_replay.grids,
+                                    "retune": retune_replay.grids}
+    for row in kr.rows:
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
     check(len(kr.rows) == len(KERNELS) and {r["name"] for r in kr.rows} == set(KERNELS),
           "a row for every kernel")
     del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks, acc_linear, f_flat, f_hier

@@ -22,8 +22,8 @@ The candidate query is separable within a level,
     idx(prefix, v) = idx_prefix * r_L  +  H_L(v),
 
 so a batched query needs only P prefix partials and C child partials per
-row (:func:`candidate_partials`), combined on the card by K4
-(kernels/hier_query.py).
+row (:func:`candidate_partials`), combined on the card by K4 (int32
+tables) or K4f (float32: the decayed window's; kernels/hier_query.py).
 
 Indices are int64 tensors; descent results are numpy, exactly the
 reference's ``uint32[K, n_modules]`` / ``int64[K]``.  The ``*_jit`` names
@@ -372,14 +372,18 @@ def candidate_partials(
 
 
 def _grid_fns(table: torch.Tensor, use_kernel: bool, span: Optional[int]):
-    """(flat, batched) grid evaluators: the K4 wrappers for a table on the
-    card when asked for (they refuse what K4 cannot take), given ``span``
-    for their window route, else the plain versions (any dtype)."""
+    """(flat, batched) grid evaluators: for a table on the card when asked
+    for, the K4f wrappers on float32 and the K4 wrappers otherwise (which
+    refuse any dtype but int32), given ``span`` for their window route;
+    else the plain versions (any dtype)."""
     from repro_torch.kernels import hier_query as hq
 
     if use_kernel and table.is_cuda:
-        return (functools.partial(hq.hier_candidate_query, span=span),
-                functools.partial(hq.hier_candidate_query_batched, span=span))
+        if table.dtype == torch.float32:
+            one, batched = hq.hier_candidate_query_f32, hq.hier_candidate_query_f32_batched
+        else:
+            one, batched = hq.hier_candidate_query, hq.hier_candidate_query_batched
+        return (functools.partial(one, span=span), functools.partial(batched, span=span))
     return hq.hier_candidate_query_ref, hq.hier_candidate_query_batched_ref
 
 
@@ -401,9 +405,9 @@ def candidate_estimates(
 ) -> np.ndarray:
     """CM estimates for every (prefix x candidate-value) child: [P, C].
 
-    ``use_kernel=True`` routes tables on the card through K4, which takes
-    int32 only and refuses the rest; the default is the plain gather.  Both
-    agree bit for bit.  K4 is given the level's last range as its ``span``
+    ``use_kernel=True`` routes tables on the card through K4 (int32) or K4f
+    (float32), and refuses any other dtype there; the default is the plain
+    gather.  Both agree bit for bit.  K4 is given the level's last range as its ``span``
     (:func:`candidate_span`).  ``max_batch`` bounds the
     per-call P*C working set: the partials are computed ONCE, then only
     the prefix axis is chunked; a short last chunk is padded with prefix

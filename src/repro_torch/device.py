@@ -24,6 +24,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda")
 
 
+def kernel_switch(flag: Optional[bool], device: Union[str, torch.device]) -> bool:
+    """A kernel switch (``use_kernel``, ``use_update_kernel``) as a bool.
+
+    ``None`` follows the tables' device: on for tables on the card, off on
+    the CPU, where the wrappers would take their plain versions anyway.
+    ``True`` or ``False`` is kept as given."""
+    return torch.device(device).type == "cuda" if flag is None else bool(flag)
+
+
 def numpy_dtype_name(dtype: torch.dtype) -> str:
     """The numpy name of a torch dtype (``torch.int32`` -> ``'int32'``).
 

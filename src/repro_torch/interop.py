@@ -13,6 +13,11 @@ Training state crosses the same way: the reference's param tree as numpy
 (stacked blocks included, bfloat16 bit for bit), the n-gram sketch's
 ``(q, r)`` and each compressed leaf's ``(q, r, sign_q, sign_r)`` keyed by
 the leaf's path in the tree.
+
+A reference ``WindowState`` (its level params and ring, as numpy) becomes
+the port's concatenated per-slot buffers, and an FCM's params, table and
+Misra-Gries counters cross the same way.  The windowed service's own
+``load_state_dict`` takes the reference service's ``state_dict()``.
 """
 from __future__ import annotations
 
@@ -75,6 +80,55 @@ def countsketch_hierarchy_from_numpy(
     params = countsketch_params_from_numpy(q, r, sign_q, sign_r, device)
     return cs.CountSketchHierarchy(params, tuple(
         torch.from_numpy(np.array(t)).to(params.sign_q.device) for t in tables))
+
+
+def window_state_from_numpy(wspec, q: np.ndarray, r: np.ndarray,
+                            ring: Sequence[Sequence[np.ndarray]],
+                            retired: Sequence[np.ndarray], head: int, epoch: int,
+                            device: DeviceLike = None):
+    """A ``core.window.WindowState`` from a reference ``WindowState`` as
+    numpy: the finest level's params (``level_params[-1]``), each ring
+    slot's level tables and the retired accumulator's (coarse to fine), and
+    the clock.  Each slot becomes one concatenated padded buffer; the
+    retired tables are taken in landmark mode only, the one mode that
+    writes them."""
+    from repro_torch.core import window as win
+
+    base = params_from_numpy(q, r, device)
+    dev = base.q.device
+
+    def stack(tables):
+        return win.pack_levels(wspec, [torch.from_numpy(np.array(t)).to(dev)
+                                       for t in tables])
+
+    if len(ring) != wspec.n_epochs:
+        raise ValueError(f"need {wspec.n_epochs} ring slots, got {len(ring)}")
+    return win.WindowState(
+        level_params=tuple(hh.level_params(wspec.hspec, base, l)
+                           for l in range(wspec.hspec.n_levels)),
+        ring=tuple(stack(t) for t in ring),
+        retired=stack(retired) if wspec.mode == "landmark" else None,
+        head=int(head), epoch=int(epoch))
+
+
+def fcm_from_numpy(spec, q: np.ndarray, r: np.ndarray, table: np.ndarray, *,
+                   seed: int = 0, counters: Optional[Mapping[int, int]] = None,
+                   mg_total: int = 0, device: DeviceLike = None):
+    """A port ``core.fcm.FCM`` holding a reference FCM's state: its base
+    params (``fcm.params.q``/``.r``), its int64 table, the ``seed`` it was
+    built with (the offset and gap hashes) and its Misra-Gries counters
+    (``fcm.mg.counters``, ``fcm.mg.total``)."""
+    from repro_torch.core.fcm import FCM
+
+    out = FCM(spec, (q, r), seed=seed, device=device)
+    t = torch.from_numpy(np.asarray(table, dtype=np.int64)).to(out.device)
+    if tuple(t.shape) != tuple(out.table.shape):
+        raise ValueError(f"table {tuple(t.shape)} does not match the spec's "
+                         f"{tuple(out.table.shape)}")
+    out.table = t
+    out.mg.counters = {int(k): int(v) for k, v in (counters or {}).items()}
+    out.mg.total = int(mg_total)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {
     "sketch_update_signed": 0, "sketch_query_signed": 0, "sketch_query_signed_median": 0,
     "hier_update_signed": 0, "hier_query_signed": 0, "hier_query_signed_median": 0,
     "sketch_update_conservative": 0, "conservative_fold": 0,
-    "sketch_update_f32": 0, "hier_update_f32": 0,
+    "sketch_update_f32": 0, "hier_update_f32": 0, "hier_query_f32": 0,
     "sketch_update_signed_f32": 0, "hier_update_signed_f32": 0}
 
 _lock = threading.Lock()
@@ -189,6 +189,7 @@ def _declare(lib) -> None:
         "sk_hier_update_f32": [vp, vp, vp, i64, i32, vp, vp, i64, vp, vp, u32, i32, i64, i64,
                                vp],
         "sk_hier_query": [vp, i64, i64, i32, vp, i64, vp, i64, i64, i64, i64, vp, vp],
+        "sk_hier_query_f32": [vp, i64, i64, i32, vp, i64, vp, i64, i64, i64, i64, vp, vp],
         "sk_sketch_update_signed": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_update_signed_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, vp, vp, vp],
         "sk_sketch_query_signed": [vp, vp, i64, i32, vp, i64, vp, vp, vp, vp, vp, i32, vp],
@@ -249,7 +250,7 @@ def require_table_dtype(table: torch.Tensor, kernel: str,
                         dtypes=(torch.int32,)) -> None:
     """The kernel's table types: int32 and float32 for the folds (K1, K3,
     K5, K5i, K6, K8); int32 alone for the reads (K2, K4, K7, K7m, K9, K9m), as
-    the reference's query kernels."""
+    the reference's query kernels, and float32 alone for K4f."""
     require(table.dtype in dtypes,
             f"{kernel}: the CUDA kernel takes "
             f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)} "

@@ -1,12 +1,16 @@
-// The candidate-grid queries, one body for K4 (the Count-Min minimum), K9
-// (the signed rows) and K9m (K9 with the median over rows fused into the
-// launch), and their launcher.  Included by sketch_kernels.cu (K4) and
-// signed_kernels.cu (K9, K9m), through point_query.cuh, whose flat point
-// queries (K2, K7, K7m) take their outputs from this body's `emit`.
+// The candidate-grid queries, one body for K4 (the Count-Min minimum), K4f
+// (K4 on float32 tables), K9 (the signed rows) and K9m (K9 with the median
+// over rows fused into the launch), and their launcher.  Included by
+// sketch_kernels.cu (K4, K4f) and signed_kernels.cu (K9, K9m), through
+// point_query.cuh, whose flat point queries (K2, K7, K7m) take their
+// outputs from this body's `emit`.
 //
 // K4 replaces src/repro/kernels/hier_query.py `hier_candidate_query`
 // (`_hier_kernel`) and, with Q requests flattened onto the prefix axis,
-// `hier_candidate_query_batched`; K9 `hier_candidate_query_signed`
+// `hier_candidate_query_batched`; K4f the same grid on float32 tables,
+// which the reference computes in jnp (`hier_candidate_query_ref`,
+// src/repro/core/hierarchy.py:560: the decayed window's tables); K9
+// `hier_candidate_query_signed`
 // (`_hier_kernel_signed`); K9m that kernel and the median over rows the
 // reference takes after it (src/repro/core/countsketch.py:371).  Child
 // (p, c) of row k lives at cell pp[k, p] + cp[k, c] of a level table whose
@@ -63,6 +67,14 @@
 // contraction, as jnp.median rounds it.  The runtime-w path takes the two
 // order statistics by rank (w^2 comparisons).  No int32 value casts to NaN,
 // so K9m equals median_rows(K9(...)) bit for bit on every int32 table.
+// K4f: the cell type T of the body is float.  Both types are 4 bytes, so
+// the window route stages the same cells and the route rule holds.  The
+// minimum is a plain `<` selection: decayed tables are finite and
+// non-negative, their zeros +0.0, so it equals torch.min over rows bit for
+// bit (no fminf, whose NaN rule differs).  K9 and K9m stay int32.  Bound
+// as K4 is: on the decayed window's grids (chip_smoke.py, H100 80GB HBM3
+// at 700 W) 2.6 us at 1 x 4,096 and 3.9 at 16 x 4,096 on the device, K4's
+// time at those grids within 3%.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,7 +95,7 @@ constexpr int kBarBytes = 16;        // the window's mbarrier, after the rows
 enum QueryOut { kOutMin = 0, kOutRows = 1, kOutMedian = 2 };
 
 struct QueryArgs {
-  const int32_t* table;   // row k of the level view at table + k * row_stride
+  const void* table;      // int32 or float (K4f): row k at table + k * row_stride
   int64_t row_stride;
   int64_t cols;           // the view's columns: no window reaches past them
   int32_t w;
@@ -97,7 +109,7 @@ struct QueryArgs {
   int64_t pitch;          // cells a staged row takes in shared memory
   int64_t c_tile;         // candidates a CTA
   int64_t c_tiles;        // CTAs a prefix
-  void* out;              // int32 [P, C] (K4), int32 [w, P, C] (K9), float [P, C] (K9m)
+  void* out;              // T [P, C] (K4, K4f), int32 [w, P, C] (K9), float [P, C] (K9m)
 };
 
 // A staged row holds `span` cells from its 16-byte-aligned start, which is
@@ -149,15 +161,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 
 // Row k's cells for one prefix: the window [at, at + len) of the row
 // (len 0 on the direct route), staged from `head` cells into its shared row.
+template <typename T>
 struct RowWindow {
-  const int32_t* at;
+  static_assert(sizeof(T) == 4, "the window route stages 4-byte cells");
+  const T* at;
   int32_t len;
   int32_t head;
 };
 
-__device__ __forceinline__ RowWindow row_window(const QueryArgs& a, int k, int64_t pp) {
-  const int32_t* row = a.table + k * a.row_stride;
-  RowWindow r{row + pp, 0, 0};
+template <typename T>
+__device__ __forceinline__ RowWindow<T> row_window(const QueryArgs& a, int k, int64_t pp) {
+  const T* row = static_cast<const T*>(a.table) + k * a.row_stride;
+  RowWindow<T> r{row + pp, 0, 0};
   if (a.span > 0 && pp >= 0 && pp < a.cols) {
     r.len = (int32_t)(a.span < a.cols - pp ? a.span : a.cols - pp);
     r.head = (int32_t)(((uintptr_t)r.at & 15u) >> 2);
@@ -167,33 +182,36 @@ __device__ __forceinline__ RowWindow row_window(const QueryArgs& a, int k, int64
 
 // The 16-byte-aligned interior [lo, hi) of a row's window, in cells from
 // `at` (lo == hi when there is none).
-__device__ __forceinline__ void window_interior(const RowWindow& r, int32_t& lo, int32_t& hi) {
+template <typename T>
+__device__ __forceinline__ void window_interior(const RowWindow<T>& r, int32_t& lo, int32_t& hi) {
   lo = (4 - r.head) & 3;
   hi = ((r.head + r.len) & ~3) - r.head;
   if (hi <= lo) lo = hi = min(lo, r.len);
 }
 
-__device__ __forceinline__ int32_t cell(const RowWindow& r, const int32_t* win, int64_t child) {
+template <typename T>
+__device__ __forceinline__ T cell(const RowWindow<T>& r, const T* win, int64_t child) {
   if ((uint64_t)child < (uint64_t)r.len) return win[r.head + child];
   return __ldg(r.at + child);
 }
 
 // Stages prefix p's windows, row k at win + k * pitch.  Every thread of the
 // CTA calls it.
-__device__ __forceinline__ void stage_windows(const QueryArgs& a, int w, int64_t p,
-                                              int32_t* win, uint64_t* bar) {
+template <typename T>
+__device__ __forceinline__ void stage_windows(const QueryArgs& a, int w, int64_t p, T* win,
+                                              uint64_t* bar) {
   if (threadIdx.x == 0) mbar_init(bar);
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t bytes = 0;
     for (int k = 0; k < w; ++k) {
       int32_t lo, hi;
-      window_interior(row_window(a, k, a.pp[k * a.P + p]), lo, hi);
+      window_interior(row_window<T>(a, k, a.pp[k * a.P + p]), lo, hi);
       bytes += 4u * (uint32_t)(hi - lo);
     }
     mbar_expect(bar, bytes);
     for (int k = 0; k < w; ++k) {
-      const RowWindow r = row_window(a, k, a.pp[k * a.P + p]);
+      const RowWindow<T> r = row_window<T>(a, k, a.pp[k * a.P + p]);
       int32_t lo, hi;
       window_interior(r, lo, hi);
       if (hi > lo) bulk_copy(win + k * a.pitch + r.head + lo, r.at + lo, 4u * (hi - lo), bar);
@@ -203,7 +221,7 @@ __device__ __forceinline__ void stage_windows(const QueryArgs& a, int w, int64_t
   // at most 3 (or, with no interior, the whole window of at most 6)
   for (int i = threadIdx.x; i < w * 12; i += blockDim.x) {
     const int k = i / 12, j = i - k * 12;
-    const RowWindow r = row_window(a, k, a.pp[k * a.P + p]);
+    const RowWindow<T> r = row_window<T>(a, k, a.pp[k * a.P + p]);
     int32_t lo, hi;
     window_interior(r, lo, hi);
     const int32_t x = j < 4 ? j : hi + (j - 4);
@@ -250,7 +268,7 @@ __device__ __forceinline__ float median_by_rank(int w, Value value) {
 // Runtime w: row k's signed value of lane (p, c), its partials reloaded.
 __device__ __forceinline__ float signed_value(const QueryArgs& a, const int32_t* win,
                                               int k, int64_t p, int64_t c) {
-  const RowWindow r = row_window(a, k, a.pp[k * a.P + p]);
+  const RowWindow<int32_t> r = row_window<int32_t>(a, k, a.pp[k * a.P + p]);
   const int32_t v = cell(r, win + k * a.pitch, a.cp[k * a.C + c]);
   return (float)signed_product(v, sign_of(a.sp[k * a.P + p], a.sc[k * a.C + c]));
 }
@@ -266,21 +284,24 @@ __device__ __forceinline__ void load_children(const QueryArgs& a, int64_t c,
   }
 }
 
-// Lane (p, c)'s output from its kW cells v and signs s.
-template <int kW, int kOut>
+// Lane (p, c)'s output from its kW cells v and signs s.  The minimum is a
+// `<` selection (for int32 the same as min, for K4f's floats see the top).
+template <int kW, int kOut, typename T>
 __device__ __forceinline__ void emit(const QueryArgs& a, int64_t p, int64_t c,
-                                     const int32_t (&v)[kW], const int32_t (&s)[kW]) {
+                                     const T (&v)[kW], const int32_t (&s)[kW]) {
   if constexpr (kOut == kOutMin) {
-    int32_t best = v[0];
+    T best = v[0];
 #pragma unroll
-    for (int k = 1; k < kW; ++k) best = min(best, v[k]);
-    static_cast<int32_t*>(a.out)[p * a.C + c] = best;
+    for (int k = 1; k < kW; ++k) best = v[k] < best ? v[k] : best;
+    static_cast<T*>(a.out)[p * a.C + c] = best;
   } else if constexpr (kOut == kOutRows) {
+    static_assert(std::is_same<T, int32_t>::value, "the signed rows are int32");
 #pragma unroll
     for (int k = 0; k < kW; ++k) {
       static_cast<int32_t*>(a.out)[(k * a.P + p) * a.C + c] = signed_product(v[k], s[k]);
     }
   } else {
+    static_assert(std::is_same<T, int32_t>::value, "the signed median reads int32");
     float x[kW];
 #pragma unroll
     for (int k = 0; k < kW; ++k) x[k] = (float)signed_product(v[k], s[k]);
@@ -298,11 +319,11 @@ __device__ __forceinline__ void emit(const QueryArgs& a, int64_t p, int64_t c,
   }
 }
 
-// The body of K4, K9 and K9m; see the top of this file.
-template <int kW, int kOut>
+// The body of K4, K4f, K9 and K9m; see the top of this file.
+template <int kW, int kOut, typename T = int32_t>
 __device__ __forceinline__ void hier_query(const QueryArgs& a) {
   extern __shared__ __align__(16) unsigned char sk_query_smem[];
-  int32_t* win = reinterpret_cast<int32_t*>(sk_query_smem);
+  T* win = reinterpret_cast<T*>(sk_query_smem);
   const uint32_t tiles = (uint32_t)a.c_tiles;
   const uint32_t pt = blockIdx.x / tiles;
   const int64_t p = pt;
@@ -321,15 +342,16 @@ __device__ __forceinline__ void hier_query(const QueryArgs& a) {
     float sc[kW];
     if (c < c_end) load_children<kW, kOut>(a, c, child, sc);
     if (a.span > 0) stage_windows(a, w, p, win, bar);
-    RowWindow rw[kW];
+    RowWindow<T> rw[kW];
     float sp[kW];
 #pragma unroll
     for (int k = 0; k < kW; ++k) {
-      rw[k] = row_window(a, k, a.pp[k * a.P + p]);
+      rw[k] = row_window<T>(a, k, a.pp[k * a.P + p]);
       if constexpr (kOut != kOutMin) sp[k] = a.sp[k * a.P + p];
     }
     while (c < c_end) {
-      int32_t v[kW], s[kW];
+      T v[kW];
+      int32_t s[kW];
 #pragma unroll
       for (int k = 0; k < kW; ++k) {
         v[k] = cell(rw[k], win + k * a.pitch, child[k]);
@@ -347,18 +369,18 @@ __device__ __forceinline__ void hier_query(const QueryArgs& a) {
         static_cast<float*>(a.out)[p * a.C + c] =
             median_by_rank(w, [&](int k) { return signed_value(a, win, k, p, c); });
       } else {
-        int32_t best = INT_MAX;
+        T best = T(0);
         for (int k = 0; k < w; ++k) {
-          const RowWindow r = row_window(a, k, a.pp[k * a.P + p]);
-          const int32_t v = cell(r, win + k * a.pitch, __ldg(a.cp + k * a.C + c));
+          const RowWindow<T> r = row_window<T>(a, k, a.pp[k * a.P + p]);
+          const T v = cell(r, win + k * a.pitch, __ldg(a.cp + k * a.C + c));
           if constexpr (kOut == kOutMin) {
-            best = min(best, v);
+            best = (k == 0 || v < best) ? v : best;
           } else {
             static_cast<int32_t*>(a.out)[(k * a.P + p) * a.C + c] =
                 signed_product(v, sign_of(a.sp[k * a.P + p], a.sc[k * a.C + c]));
           }
         }
-        if constexpr (kOut == kOutMin) static_cast<int32_t*>(a.out)[p * a.C + c] = best;
+        if constexpr (kOut == kOutMin) static_cast<T*>(a.out)[p * a.C + c] = best;
       }
     }
   }
@@ -369,6 +391,13 @@ template <int kW>
 __global__ void __launch_bounds__(kQueryThreads)
     sk_hier_query_kernel(const __grid_constant__ QueryArgs a) {
   hier_query<kW, kOutMin>(a);
+}
+
+// K4f: K4 on float32 tables.
+template <int kW>
+__global__ void __launch_bounds__(kQueryThreads)
+    sk_hier_query_f32_kernel(const __grid_constant__ QueryArgs a) {
+  hier_query<kW, kOutMin, float>(a);
 }
 
 // K9: the signed rows.
@@ -387,9 +416,11 @@ __global__ void __launch_bounds__(kQueryThreads)
 
 using QueryKernel = void (*)(const QueryArgs);
 
-template <int kOut, int kW>
+template <int kOut, int kW, typename T>
 QueryKernel query_kernel() {
-  if constexpr (kOut == kOutMin) {
+  if constexpr (kOut == kOutMin && std::is_same<T, float>::value) {
+    return sk_hier_query_f32_kernel<kW>;
+  } else if constexpr (kOut == kOutMin) {
     return sk_hier_query_kernel<kW>;
   } else if constexpr (kOut == kOutRows) {
     return sk_hier_query_signed_kernel<kW>;
@@ -416,16 +447,16 @@ auto by_rows(int w, Make make) {
   }
 }
 
-template <int kOut>
+template <int kOut, typename T>
 QueryKernel query_kernel_for(int w) {
-  return by_rows(w, [](auto kw) { return query_kernel<kOut, decltype(kw)::value>(); });
+  return by_rows(w, [](auto kw) { return query_kernel<kOut, decltype(kw)::value, T>(); });
 }
 
-// Launches K4, K9 or K9m on the caller's stream.  `span` > 0 is the window
+// Launches K4 (T int32), K4f (T float), K9 or K9m on the caller's stream.  `span` > 0 is the window
 // route (`smem` then w staged rows and the barrier), 0 the direct route
 // (`smem` 0); a launch whose shared bytes, tile or grid disagree is refused,
 // as is one whose shared bytes the card cannot grant.
-template <int kOut>
+template <int kOut, typename T = int32_t>
 int launch_hier_query(QueryArgs a, int64_t smem, void* stream) {
   if (a.P <= 0 || a.C <= 0) return 0;
   a.pitch = a.span > 0 ? window_pitch(a.span) : 0;
@@ -435,7 +466,7 @@ int launch_hier_query(QueryArgs a, int64_t smem, void* stream) {
       a.P * a.c_tiles > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  const QueryKernel kernel = query_kernel_for<kOut>(a.w);
+  const QueryKernel kernel = query_kernel_for<kOut, T>(a.w);
   const int rc = sk_fold::opt_in_smem(kernel, (size_t)smem);
   if (rc) return rc;
   kernel<<<(unsigned)(a.P * a.c_tiles), kQueryThreads, (size_t)smem, (cudaStream_t)stream>>>(a);

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the sketch hot path (K1-K4, K1f, K3f), with a plain C
+// Hand-written Hopper kernels for the sketch hot path (K1-K4, K1f, K3f, K4f), with a plain C
 // interface for ctypes.  Build:
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -25,7 +25,8 @@
 // order, so float32 tables equal the plain version bit for bit only while
 // every cell's partial sums are exact (integers below 2^24), the reference's
 // own contract (hier_update.py:35-38).  K2 and K4 read int32 tables only, as
-// the reference's query kernels do; K4's body is hier_query.cuh's, K2's
+// the reference's query kernels do, and K4f, K4's body on float32 cells, the
+// decayed window's float32 tables; K4's body is hier_query.cuh's, K2's
 // point_query.cuh's.
 //
 // Indices, chunks and hash params are int64 (the port's index dtype).
@@ -146,6 +147,15 @@ int sk_hier_query(const int32_t* table, int64_t row_stride, int64_t cols, int32_
   const sk_query::QueryArgs a{table, row_stride, cols, w, pp, nullptr, P, cp, nullptr, C,
                               span, 0, c_tile, 0, out};
   return sk_query::launch_hier_query<sk_query::kOutMin>(a, smem, stream);
+}
+
+// K4f: K4's body on float32 tables (the decayed window's).
+int sk_hier_query_f32(const float* table, int64_t row_stride, int64_t cols, int32_t w,
+                      const int64_t* pp, int64_t P, const int64_t* cp, int64_t C, int64_t span,
+                      int64_t c_tile, int64_t smem, float* out, void* stream) {
+  const sk_query::QueryArgs a{table, row_stride, cols, w, pp, nullptr, P, cp, nullptr, C,
+                              span, 0, c_tile, 0, out};
+  return sk_query::launch_hier_query<sk_query::kOutMin, float>(a, smem, stream);
 }
 
 }  // extern "C"

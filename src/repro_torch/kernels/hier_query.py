@@ -1,7 +1,9 @@
-"""K4, K9 and K9m: all candidate children of heavy prefixes in one launch.
+"""K4, K4f, K9 and K9m: all candidate children of heavy prefixes in one launch.
 
 Port of ``repro/kernels/hier_query.py`` (``hier_candidate_query``,
-``hier_candidate_query_batched`` and ``hier_candidate_query_signed``).  The
+``hier_candidate_query_batched`` and ``hier_candidate_query_signed``), and
+of the jnp grid the reference runs on float tables
+(``hier_candidate_query_ref``, ``repro/core/hierarchy.py:560``).  The
 mixed-radix cell address is separable -- ``idx(p, c) = pp[k, p] + cp[k,
 c]`` per row k -- so the kernels take the two partial-index factors and
 evaluate the full P x C grid without materialising the key grid.  The TPU
@@ -11,7 +13,9 @@ accumulated over a sequential tile grid.
 The Hopper kernels share one body (``csrc/hier_query.cuh``): one thread
 per (p, c) lane over all w rows, its loads issued before their first use,
 a CTA per prefix and run of candidates.  K4 (``sk_hier_query_kernel``)
-keeps the Count-Min minimum; K9 (``sk_hier_query_signed_kernel``) writes
+keeps the Count-Min minimum; K4f (``sk_hier_query_f32_kernel``) is K4 on
+float32 tables, the decayed window's (core/window.py), with the same routes
+(both cells are 4 bytes); K9 (``sk_hier_query_signed_kernel``) writes
 the signed int32 rows of ``hier_candidate_query_signed``, the sign of
 child (p, c) at row k being ``sp[k, p] * sc[k, c]`` (cumulative parities
 XOR, so +-1 signs multiply; ``core.countsketch.candidate_signed_partials``
@@ -114,11 +118,12 @@ def query_geometry(w: int, p: int, c: int, span: Optional[int],
 
 
 def _check(name: str, table: torch.Tensor, pp: torch.Tensor, cp: torch.Tensor,
-           signs=()) -> None:
-    """The kernels' inputs: a unit-stride int32 [w, cols] view, int64 [w, P]
-    and [w, C] partials and, signed, float32 sign partials of their shapes,
-    all on the table's device."""
-    _cuda.require_int32_table(table, name)
+           signs=(), dtypes=(torch.int32,)) -> None:
+    """The kernels' inputs: a unit-stride [w, cols] view of one of
+    ``dtypes`` (int32; K4f float32), int64 [w, P] and [w, C] partials and,
+    signed, float32 sign partials of their shapes, all on the table's
+    device."""
+    _cuda.require_table_dtype(table, name, dtypes)
     _cuda.require(table.dim() == 2 and table.stride(1) == 1,
                   f"{name}: table rows must be unit-stride")
     _cuda.require_on(table.device, name, pp=pp, cp=cp)
@@ -138,11 +143,12 @@ def _check(name: str, table: torch.Tensor, pp: torch.Tensor, cp: torch.Tensor,
 
 
 def _launch(name: str, symbol: str, table: torch.Tensor, pp: torch.Tensor,
-            cp: torch.Tensor, signs, span: Optional[int],
-            out: torch.Tensor) -> torch.Tensor:
-    """Launch K4, K9 or K9m with the route :func:`query_geometry` picks;
-    raise if the launch fails (nothing falls back)."""
-    _check(name, table, pp, cp, signs)
+            cp: torch.Tensor, signs, span: Optional[int], out: torch.Tensor,
+            dtypes=(torch.int32,)) -> torch.Tensor:
+    """Launch K4, K4f, K9 or K9m with the route :func:`query_geometry`
+    picks on a table of one of ``dtypes``; raise if the launch fails
+    (nothing falls back)."""
+    _check(name, table, pp, cp, signs, dtypes)
     _cuda.require(span is None or int(span) >= 1, f"{name}: span must be >= 1, got {span}")
     w, cols = table.shape
     p, c = pp.shape[1], cp.shape[1]
@@ -207,6 +213,39 @@ def hier_candidate_query_batched_ref(table: torch.Tensor, pp: torch.Tensor,
     """Plain request-axis version: [w, Q, P] partials -> [Q, P, C]."""
     w, q, p = pp.shape
     flat = hier_candidate_query_ref(table, pp.reshape(w, q * p), cp)
+    return flat.reshape(q, p, cp.shape[1])
+
+
+def hier_candidate_query_f32(table: torch.Tensor, pp: torch.Tensor, cp: torch.Tensor, *,
+                             span: Optional[int] = None) -> torch.Tensor:
+    """Count-Min estimates for every (prefix, candidate) child of a float32
+    table: float32[P, C].
+
+    Inputs as :func:`hier_candidate_query`, the table float32.  CUDA tensors
+    launch K4f, which equals :func:`hier_candidate_query_ref` bit for bit on
+    finite tables whose zeros are +0.0 (the decayed window's: finite and
+    non-negative); CPU tensors take :func:`hier_candidate_query_ref`.
+    """
+    if not table.is_cuda:
+        if table.dtype != torch.float32:
+            raise ValueError(
+                f"hier_candidate_query_f32 supports float32 tables only (got "
+                f"{table.dtype}); use hier_candidate_query_ref")
+        return hier_candidate_query_ref(table, pp, cp)
+    out = torch.empty((pp.shape[1], cp.shape[1]), dtype=torch.float32, device=table.device)
+    return _launch("hier_query_f32", "sk_hier_query_f32", table, pp, cp, (), span, out,
+                   (torch.float32,))
+
+
+def hier_candidate_query_f32_batched(table: torch.Tensor, pp: torch.Tensor,
+                                     cp: torch.Tensor, *,
+                                     span: Optional[int] = None) -> torch.Tensor:
+    """:func:`hier_candidate_query_batched` on a float32 table:
+    float32[Q, P, C] from [w, Q, P] prefix partials, one K4f launch (the
+    request axis rides the prefix axis); its plain version is
+    :func:`hier_candidate_query_batched_ref`."""
+    w, q, p = pp.shape
+    flat = hier_candidate_query_f32(table, pp.reshape(w, q * p), cp, span=span)
     return flat.reshape(q, p, cp.shape[1])
 
 

@@ -13,12 +13,17 @@ modes:
     ``mode="conservative"`` folds every block with the Estan-Varghese
     update, all levels in one K5i launch on the card; its tables are not
     linear in the stream, so it stays single-shard and refuses every merge
-    surface.
+    surface.  Hot spec migration (serving/migration.py's MigratingSurface):
+    ``begin_migration`` opens a double-write window onto a fresh successor
+    endpoint on a re-tuned spec and cuts over once it has absorbed the
+    warmup mass.
 
 :class:`SketchServeEngine`
-    the async engine in front of an endpoint: staged ingest on the plain
-    path, snapshot queries under a staleness bound, and batched
-    multi-request descent (``submit`` + ``flush``).
+    the async engine in front of an endpoint or a windowed service
+    (serving/windowed_topk.py): staged ingest on the plain path, snapshot
+    queries under a staleness bound, batched multi-request descent
+    (``submit`` + ``flush``), the epoch clock (``advance``) and the
+    auto-tuner (serving/autotune.py), ticked on every ``sync``.
 
 Semantics are the reference's, with one difference of mechanism: where the
 reference donates table buffers to jitted folds, the port folds in place.
@@ -27,9 +32,8 @@ would see later ingest and silently break the staleness contract.  The
 staged fold runs on the current stream; overlapping it with the next
 block's hash on a side stream is later performance work.
 
-Not ported yet, and refused by name: migration and the auto-tuner (ROADMAP
-item 11), ``to_sharded`` and sharded backends (item 12), windowed backends
-(item 11).
+Not ported yet, and refused by name: ``to_sharded`` and sharded backends
+(ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
 from repro_torch.core.distributed import pad_block_pow2
 from repro_torch.core.summary import SpaceSaving
-from repro_torch.device import DeviceLike, numpy_dtype_name
+from repro_torch.device import DeviceLike, kernel_switch, numpy_dtype_name
 from repro_torch.kernels.ops import KernelHierarchy, check_linear_kernel_freqs
 from repro_torch.serving.migration import MigratingSurface, require_not_migrating
 from repro_torch.serving.sharded_topk import threshold_descent_topk
@@ -74,24 +78,28 @@ class SketchTopKEndpoint(MigratingSurface):
     ``params`` replaces the reference's jax key: a ``torch.Generator`` or
     the finest level's ``(q, r)`` arrays (e.g. a reference endpoint's
     ``state_dict()["params.q"]`` / ``["params.r"]``).  ``device=None``
-    means ``cuda``.
+    means ``cuda``.  ``use_kernel``/``use_update_kernel`` left at ``None``
+    follow the tables' device (:func:`repro_torch.device.kernel_switch`):
+    the kernels on the card, the plain versions on the CPU.
     """
 
     def __init__(self, base_spec, params, *,
                  max_candidates_per_group: int = 1 << 16,
-                 use_kernel: bool = False, use_update_kernel: bool = False,
+                 use_kernel: Optional[bool] = None,
+                 use_update_kernel: Optional[bool] = None,
                  dtype=torch.int32, mode: str = "linear",
                  device: DeviceLike = None):
         if mode not in ("linear", "conservative"):
             raise ValueError(f"mode must be 'linear' or 'conservative', got {mode!r}")
         self._kh = None
         self._migration = None
-        self._use_update_kernel = bool(use_update_kernel)
         self.hspec = hh.HierarchySpec.from_spec(base_spec)
         self.state = hh.init_hierarchy(self.hspec, params, dtype=dtype,
                                        device=device)
+        use_update_kernel = kernel_switch(use_update_kernel, self.device)
+        self._use_update_kernel = use_update_kernel
         self.max_candidates = int(max_candidates_per_group)
-        self.use_kernel = use_kernel
+        self.use_kernel = kernel_switch(use_kernel, self.device)
         self.mode = mode
         self.total = 0
         self._pools: List[SpaceSaving] = [
@@ -215,7 +223,17 @@ class SketchTopKEndpoint(MigratingSurface):
     def state_dict(self) -> dict:
         """Full endpoint state as a flat ``{key: ndarray}`` mapping, with the
         reference's keys, dtypes and fingerprint: it loads into the
-        reference's ``SketchTopKEndpoint.load_state_dict`` bit for bit."""
+        reference's ``SketchTopKEndpoint.load_state_dict`` bit for bit.
+
+        Refused mid-migration: the successor's tables are transient
+        double-write state; call ``abort_migration()`` (or wait for
+        cutover) first."""
+        if self._migration is not None:
+            raise ValueError(
+                "cannot checkpoint an endpoint mid-migration: the warmup "
+                "successor's state is transient; call abort_migration() to "
+                "roll back to the active surface (or wait for cutover), "
+                "then snapshot")
         state = self.state
         fine = state.states[-1].params
         out = {
@@ -254,6 +272,31 @@ class SketchTopKEndpoint(MigratingSurface):
         for j, p in enumerate(self._pools):
             p.load_state(sd[f"pool{j}.rows"], sd[f"pool{j}.counts"],
                          sd[f"pool{j}.errs"])
+
+    # -- hot spec migration hooks (serving/migration.MigratingSurface) -------
+
+    def _build_successor(self, new_spec, params) -> "SketchTopKEndpoint":
+        return SketchTopKEndpoint(
+            new_spec, params,
+            max_candidates_per_group=self.max_candidates,
+            use_kernel=self.use_kernel,
+            use_update_kernel=self._use_update_kernel,
+            dtype=self.state.states[0].table.dtype, mode="linear",
+            device=self.device)
+
+    def _adopt(self, inc: "SketchTopKEndpoint") -> None:
+        """Adopt the successor's state wholesale; free the old tables.
+
+        After this, the endpoint is bit-identical to a fresh endpoint built
+        on the new spec (same params) and fed exactly the blocks since
+        ``begin_migration`` -- the successor IS that endpoint.  On the
+        update-kernel path its ``KernelHierarchy`` is taken over.  ``total``
+        restarts at the post-warmup-start mass."""
+        self.hspec = inc.hspec
+        self._kh = inc._kh
+        self._state = inc._state
+        self._pools = inc._pools
+        self.total = inc.total
 
     # -- queries ---------------------------------------------------------------
 
@@ -370,7 +413,9 @@ class SketchSnapshot:
 
 
 class SketchServeEngine:
-    """Async serving engine over a :class:`SketchTopKEndpoint`.
+    """Async serving engine over a :class:`SketchTopKEndpoint` or a
+    :class:`~repro_torch.serving.windowed_topk.WindowedTopKService` --
+    anything with ``ingest``/``state``/``candidates``/``total``/``hspec``.
 
     **Staged ingest.**  On a plain linear endpoint (no fused update
     kernel), each block is only *staged* -- its hash cascade computed --
@@ -390,19 +435,21 @@ class SketchServeEngine:
     (core.hierarchy.batched_find_heavy_hitters); each answer is
     bit-identical to its own serial call.
 
-    The auto-tuner hook (``tuner``) arrives with live re-tuning (ROADMAP
-    item 11); sharded and windowed backends with items 12 and 11.
+    **Maintenance.**  :meth:`advance` is a windowed backend's epoch clock;
+    it changes the window without moving stream mass, so it invalidates the
+    snapshot.  An optional ``tuner`` (serving/autotune.AutoTuner) steps on
+    every :meth:`sync`, so retune decisions and migrations happen at
+    snapshot boundaries; migration double-writes ride inside the backend's
+    own ingest.  Sharded backends arrive with ROADMAP item 12.
+
     Thread safety: one re-entrant lock around every entry point.
     """
 
     def __init__(self, backend, *, max_staleness: Optional[int] = 0,
                  tuner=None):
-        if tuner is not None:
-            raise NotImplementedError(
-                "SketchServeEngine tuner: auto-tuning is not ported yet "
-                "(ROADMAP item 11)")
         self.backend = backend
         self.max_staleness = max_staleness
+        self.tuner = tuner
         self._lock = threading.RLock()
         self._staged: Optional[StagedBlock] = None
         self._mass = 0                       # engine staleness watermark
@@ -445,13 +492,27 @@ class SketchServeEngine:
         with self._lock:
             self._fold_pending()
 
+    def advance(self) -> None:
+        """Epoch clock passthrough for windowed backends.
+
+        Advancing changes the window tables WITHOUT moving stream mass, so
+        the staleness bound alone cannot see it: the snapshot is
+        invalidated and the next query refreshes."""
+        with self._lock:
+            self._fold_pending()
+            self.backend.advance()
+            self._snap = None
+
     # -- snapshot / staleness -------------------------------------------------
 
     def _take_snapshot(self) -> SketchSnapshot:
         b = self.backend
+        st = b.state
+        if callable(st):                     # the windowed service's method
+            st = st()
         state = hh.HierarchyState(states=tuple(
             sk.SketchState(params=s.params, table=s.table.clone())
-            for s in b.state.states))
+            for s in st.states))
         return SketchSnapshot(hspec=b.hspec, state=state,
                               candidates=b.candidates(),
                               total=int(b.total), mass=self._mass)
@@ -477,11 +538,16 @@ class SketchServeEngine:
             self._snap = self._take_snapshot()
 
     def sync(self) -> SketchSnapshot:
-        """Drain the pipeline and refresh the snapshot.  The one barrier in
-        the engine."""
+        """Drain the pipeline, refresh the snapshot and tick the auto-tuner.
+        The one barrier in the engine."""
         with self._lock:
             self._fold_pending()
             self._snap = self._take_snapshot()
+            if self.tuner is not None:
+                # retune on snapshot boundaries only: a migration opened here
+                # double-writes inside the backend's own ingest, and queries
+                # keep serving the old tables, which this snapshot holds
+                self.tuner.step()
             return self._snap
 
     def _fresh_snapshot(self) -> SketchSnapshot:

@@ -1,8 +1,7 @@
 """Heavy-hitter workloads + exact ground truth for the hierarchy subsystem.
 
-Port of ``repro/streams/heavy_hitters.py`` (numpy).  This slice carries the
-zipf edge workload; the n-gram workload arrives with the stream slice
-(ROADMAP item 8).  The reference has two workload families:
+Port of ``repro/streams/heavy_hitters.py`` (numpy).  Two workload
+families:
 
   * ``zipf_hh_workload`` -- the Twitter/CAIDA-like edge streams already used
     for point queries, re-cut as threshold reporting: which edges carry at
@@ -25,6 +24,7 @@ from typing import List, Tuple
 import numpy as np
 
 from repro_torch.core.sketch import SketchSpec
+from repro_torch.streams.ngram import ngram_items_np, ngram_schema
 from repro_torch.streams.synthetic import Stream, zipf_graph_stream
 
 
@@ -77,6 +77,35 @@ def zipf_hh_workload(
     stream = zipf_graph_stream(n_src=n_src, n_tgt=n_tgt, n_edges=n_edges,
                                n_occurrences=n_occurrences, s_src=s, s_tgt=s,
                                seed=seed, name=f"zipf-hh(s={s})")
+    threshold = max(1, int(phi * stream.total))
+    ei, ef = exact_heavy_hitters(stream.items, stream.freqs, threshold)
+    return HHWorkload(stream=stream, threshold=threshold,
+                      exact_items=ei, exact_freqs=ef)
+
+
+def ngram_hh_workload(
+    vocab_size: int = 512,
+    n: int = 2,
+    n_sequences: int = 64,
+    seq_len: int = 256,
+    phi: float = 0.002,
+    s: float = 1.2,
+    seed: int = 0,
+) -> HHWorkload:
+    """Token n-gram stream: Zipf(s) unigram marginal, report heavy n-grams.
+
+    The compressed stream's keys are modularity-n over [0, vocab_size); a
+    hierarchy over the per-token partition prunes by prefix (n-1)-gram mass.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64) ** (-s)
+    p = ranks / ranks.sum()
+    toks = rng.choice(vocab_size, size=(n_sequences, seq_len), p=p)
+    grams = ngram_items_np(toks.astype(np.uint32), n)
+    uniq, inv = np.unique(grams, axis=0, return_inverse=True)
+    freqs = np.bincount(inv).astype(np.int64)
+    stream = Stream(schema=ngram_schema(vocab_size, n), items=uniq,
+                    freqs=freqs, name=f"{n}gram-hh(V={vocab_size})")
     threshold = max(1, int(phi * stream.total))
     ei, ef = exact_heavy_hitters(stream.items, stream.freqs, threshold)
     return HHWorkload(stream=stream, threshold=threshold,

@@ -1,7 +1,7 @@
 """Synthetic stream generators matched to the paper's datasets (SVI-A1).
 
 Port of ``repro/streams/synthetic.py`` (numpy, with the port's own
-``KeySchema``); this slice carries ``Stream`` and ``zipf_graph_stream``.
+``KeySchema``): every generator draws exactly the reference's arrays.
 
 The raw Twitter/CAIDA traces are not redistributable offline, so we generate
 streams with the same *structure*: modular keys, Zipf-skewed frequencies, and
@@ -96,3 +96,66 @@ def zipf_graph_stream(
     keep = freqs > 0
     schema = KeySchema(domains=(1 << 32, 1 << 32))
     return Stream(schema=schema, items=uniq[keep].astype(np.uint32), freqs=freqs[keep], name=name)
+
+
+def ipv4_stream(
+    n_src_hosts: int = 40_000,
+    n_tgt_hosts: int = 4_000,
+    n_pairs: int = 150_000,
+    n_occurrences: int = 3_000_000,
+    s: float = 1.2,
+    seed: int = 1,
+    name: str = "ipv4-like",
+) -> Stream:
+    """(src_ip, dst_ip) pair stream; #sources >> #targets like CAIDA probing."""
+    rng = np.random.default_rng(seed)
+    src_hosts = rng.integers(0, 1 << 32, size=n_src_hosts, dtype=np.uint64).astype(np.uint32)
+    tgt_hosts = rng.integers(0, 1 << 32, size=n_tgt_hosts, dtype=np.uint64).astype(np.uint32)
+    src = src_hosts[_zipf_values(n_src_hosts, n_pairs, s, rng)]
+    tgt = tgt_hosts[_zipf_values(n_tgt_hosts, n_pairs, 0.8, rng)]
+    pairs = np.stack([src, tgt], axis=1)
+    uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+    mult = np.bincount(inv).astype(np.float64)
+    freqs = rng.multinomial(n_occurrences, mult / mult.sum()).astype(np.int64)
+    keep = freqs > 0
+    schema = KeySchema(domains=(1 << 32, 1 << 32))
+    return Stream(schema=schema, items=uniq[keep].astype(np.uint32), freqs=freqs[keep], name=name)
+
+
+def reinterpret_modularity(stream: Stream, words: int) -> Stream:
+    """View a modularity-2 (two 32-bit modules) stream at higher modularity.
+
+    words=4: 16-bit words (IPv4#4 analogue); words=8: 8-bit words (IPv4#8).
+    This mirrors how the paper derives #4/#8 datasets from the same trace.
+    """
+    if stream.schema.domains != (1 << 32, 1 << 32):
+        raise ValueError("expects a two x 32-bit stream")
+    if words not in (4, 8):
+        raise ValueError("words must be 4 or 8")
+    bits = 64 // words
+    mask = (1 << bits) - 1
+    packed = (stream.items[:, 0].astype(np.uint64) << np.uint64(32)) | stream.items[:, 1].astype(np.uint64)
+    cols = [((packed >> np.uint64(bits * (words - 1 - i))) & np.uint64(mask)).astype(np.uint32)
+            for i in range(words)]
+    items = np.stack(cols, axis=1)
+    schema = KeySchema(domains=(1 << bits,) * words)
+    return Stream(schema=schema, items=items, freqs=stream.freqs.copy(),
+                  name=f"{stream.name}#{words}")
+
+
+def telecom_stream(
+    n_users: int = 30_000,
+    n_calls: int = 120_000,
+    seed: int = 3,
+) -> Stream:
+    """(caller, callee, duration_s) stream -- the paper's SIII example of
+    arbitrary positive per-tuple counts (seconds of conversation)."""
+    rng = np.random.default_rng(seed)
+    a = _zipf_values(n_users, n_calls, 1.05, rng).astype(np.uint32)
+    b = rng.integers(0, n_users, size=n_calls, dtype=np.int64).astype(np.uint32)
+    pairs = np.stack([a, b], axis=1)
+    uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+    dur = rng.exponential(180.0, size=n_calls).astype(np.int64) + 1
+    freqs = np.bincount(inv, weights=dur.astype(np.float64)).astype(np.int64)
+    schema = KeySchema(domains=(n_users, n_users))
+    return Stream(schema=schema, items=uniq, freqs=freqs, name="telecom-like")

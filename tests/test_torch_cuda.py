@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1-K9, K5i, K7m, K9m, and the float32 folds
-K1f, K3f, K6f, K8f) against their plain PyTorch versions.
+"""The port's CUDA kernels (K1-K9, K5i, K7m, K9m, the float32 folds K1f,
+K3f, K6f, K8f and the float32 grid K4f) against their plain PyTorch
+versions.
 
 Needs a CUDA card: every test skips without one (``-m gpu`` selects them
 on a machine that has one).  Inputs are made with numpy from a seed.  On
@@ -19,8 +20,9 @@ of the hierarchy folds (K3, K3f, K8, K8f) on int32 and float32 tables;
 the flat fold (K1, K1f, the hierarchy body's one-level case) at spans of
 1 and 64 tiles, w = 1, 5 and 9, on blocks of mixed keys, of one source
 and of one key;
-the candidate-grid queries (K4, K9, K9m) on both routes for w = 1-9, on
-views whose windows start unaligned; the flat point queries (K2, K7, K7m)
+the candidate-grid queries (K4, K9, K9m, and K4f on float32 tables of
+finite non-negative values) on both routes for w = 1-9, on views whose
+windows start unaligned; the flat point queries (K2, K7, K7m)
 for w = 1-9 with keys' chunks in registers and not, at one lane a query
 and one a row, on tables holding INT_MAX, INT_MIN and zeros.
 """
@@ -371,10 +373,12 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype,error,match", [
-    (torch.float32, ValueError, "takes int32 tables"),
+    (torch.float64, ValueError, "takes int32 tables"),
     (torch.int64, ValueError, "takes int32 tables"),
 ])
 def test_kernel_descent_refuses_tables_k4_does_not_take(cuda, dtype, error, match):
+    """float32 tables go to K4f (tests below); any other dtype but int32 is
+    refused on the card, and nothing is launched."""
     hspec = _hspec()
     state = hh.init_hierarchy(hspec, _params(hspec.levels[-1], 16, cuda), dtype=dtype,
                               device=cuda)
@@ -390,6 +394,10 @@ def test_kernel_descent_refuses_tables_k4_does_not_take(cuda, dtype, error, matc
         hh.batched_candidate_estimates(hspec, state, 0, [np.zeros((1, 0), np.uint32)],
                                        values, use_kernel=True)
     assert _cuda.LAUNCHES["hier_query"] == n0
+    with pytest.raises(ValueError, match="takes float32 tables"):
+        hq.hier_candidate_query_f32(state.states[0].table, torch.zeros(
+            (hspec.base.width, 1), dtype=torch.int64, device=cuda), torch.zeros(
+            (hspec.base.width, 1), dtype=torch.int64, device=cuda))
 
 
 def test_endpoint_kernel_paths_equal_plain_paths_on_card(cuda):
@@ -1382,3 +1390,119 @@ def test_compressor_on_the_card_equals_cpu_on_integer_gradients(cuda):
                                     tr.leaves(cpu_state.residual)):
                 assert (a is None and b is None) or torch.equal(a.cpu(), b), path
         assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + 4
+
+
+# --------------------------------------------------------------------------
+# K4f: the candidate grid on float32 tables (the decayed window's)
+# --------------------------------------------------------------------------
+
+def _grid_case_f32(w, p, c, seed, device, offset=3, prefixes=600):
+    """As :func:`_grid_case`, of float32 cells: finite non-negative values
+    (integers, decayed non-integers, values that tie in a row, and +0.0),
+    as a decayed window's tables hold them."""
+    rng = np.random.default_rng(seed)
+    h = prefixes * GRID_SPAN
+    shape = (w, h + 2 * offset + 8)
+    cells = np.where(rng.random(shape) < 0.5, rng.integers(0, 1 << 24, shape),
+                     rng.random(shape) * 1e4).astype(np.float32)
+    cells[:, ::5] = 7.25
+    cells[:, ::7] = 0.0
+    table = torch.from_numpy(cells).to(device)
+    pp = torch.from_numpy(rng.integers(0, prefixes, (w, p)) * GRID_SPAN).to(device)
+    cp = torch.from_numpy(rng.integers(0, GRID_SPAN, (w, c))).to(device)
+    return table[:, offset : offset + h], pp, cp
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("route", ["direct", "window"])
+@pytest.mark.parametrize("w", range(1, 10))
+def test_k4f_matches_plain_for_every_w_on_both_routes(cuda, monkeypatch, w, route):
+    """K4f bit for bit against ``hier_candidate_query_ref`` on float32
+    views whose windows start unaligned: w = 1-8 unrolled, 9 the runtime
+    loop; the window route staging the whole range and 37 cells a row;
+    P = 1 and 2,190, and a Q-batched grid."""
+    spans = (GRID_SPAN, 37) if route == "window" else (0,)
+    for p, c, seed in ((1, 5003, 140 + w), (2190, 300, 150 + w)):
+        view, pp, cp = _grid_case_f32(w, p, c, seed, cuda)
+        for span in spans:
+            _force_query_route(monkeypatch, w, span)
+            n0 = dict(_cuda.LAUNCHES)
+            got = hq.hier_candidate_query_f32(view, pp, cp, span=GRID_SPAN)
+            assert got.shape == (p, c)
+            assert _bitwise(got, hq.hier_candidate_query_ref(view, pp, cp))
+            pp3 = torch.stack([pp, pp.flip(1), pp], dim=1)
+            assert _bitwise(hq.hier_candidate_query_f32_batched(view, pp3, cp, span=GRID_SPAN),
+                            hq.hier_candidate_query_batched_ref(view, pp3, cp))
+            assert _cuda.LAUNCHES["hier_query_f32"] == n0["hier_query_f32"] + 2
+            assert _cuda.LAUNCHES["hier_query"] == n0["hier_query"]
+
+
+def test_k4f_on_strided_level_views_matches_plain(cuda):
+    """K4f reads each level view of a float32 concatenated hierarchy table
+    through its row stride, serial and batched."""
+    hspec = _hspec()
+    kh = KernelHierarchy(hspec, _params(hspec.levels[-1], 30, cuda), tile_h=128,
+                          dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(31)
+    kh.table.copy_(torch.from_numpy(
+        (rng.random(tuple(kh.table.shape)) * 500).astype(np.float32)).to(cuda))
+    kh._state_cache = None
+    state = kh.state()
+    for level in range(hspec.n_levels):
+        view = state.states[level].table
+        assert view.dtype == torch.float32 and (not view.is_contiguous() or level == 0)
+        prefixes = np.stack([rng.integers(0, hspec.base.schema.domains[m], 37,
+                                          dtype=np.uint64).astype(np.uint32)
+                             for m in hh.level_modules(hspec.base, level - 1)],
+                            axis=1) if level else np.zeros((1, 0), np.uint32)
+        values = np.stack([rng.integers(0, hspec.base.schema.domains[m], 53,
+                                        dtype=np.uint64).astype(np.uint32)
+                           for m in hspec.base.partition[level]], axis=1)
+        pp, cp = hh.candidate_partials(hspec, state, level, prefixes, values)
+        span = hh.candidate_span(hspec, level)
+        assert _bitwise(hq.hier_candidate_query_f32(view, pp, cp, span=span),
+                        hq.hier_candidate_query_ref(view, pp, cp))
+        pp3 = torch.stack([pp, pp.flip(1)], dim=1)
+        assert _bitwise(hq.hier_candidate_query_f32_batched(view, pp3, cp, span=span),
+                        hq.hier_candidate_query_batched_ref(view, pp3, cp))
+
+
+def test_decayed_window_descent_launches_k4f_and_equals_plain(cuda):
+    """The decayed window's descent on the card runs on K4f (its folds on
+    K3f) with the service's default switches, and answers as the same
+    service does on CPU copies."""
+    from repro_torch.serving.windowed_topk import WindowedTopKService
+
+    wl = zipf_hh_workload(n_src=300, n_tgt=600, n_edges=3000, n_occurrences=30_000, seed=4)
+    spec = sk.mod_sketch_spec(KeySchema(wl.stream.schema.domains), [(0,), (1,)],
+                              (256, 128), 4)
+    params = _params(hh.HierarchySpec.from_spec(spec).levels[-1], 32, torch.device("cpu"))
+    kw = dict(n_epochs=3, window_mode="decay", decay=0.9, max_candidates_per_group=512)
+    card = WindowedTopKService(spec, params, device=cuda, **kw)
+    host = WindowedTopKService(spec, params, device="cpu", **kw)
+    assert card.use_kernel and card.use_update_kernel
+    assert not (host.use_kernel or host.use_update_kernel)
+    n0 = dict(_cuda.LAUNCHES)
+    for b, idx in enumerate(np.array_split(np.arange(wl.stream.items.shape[0]), 7)):
+        if b and b % 2 == 0:
+            card.advance()
+            host.advance()
+        card.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+        host.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+    for a, b in zip(card.state().states, host.state().states):
+        assert _bitwise(a.table.cpu(), b.table)
+    thr = max(1, card.total // 100)
+    got, want = card.heavy_hitters(thr), host.heavy_hitters(thr)
+    assert got[0].shape[0] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    got, want = card.topk(20), host.topk(20)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert _cuda.LAUNCHES["hier_query_f32"] > n0["hier_query_f32"]
+    assert _cuda.LAUNCHES["hier_update_f32"] > n0["hier_update_f32"]
+    assert _cuda.LAUNCHES["hier_query"] == n0["hier_query"]
+

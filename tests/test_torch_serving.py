@@ -240,12 +240,13 @@ def test_unported_surfaces_refuse_by_roadmap_item():
         pse.SketchTopKEndpoint(base, torch.Generator(), mode="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         port.to_sharded(None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.begin_migration(base, torch.Generator(), warmup=10)
-    assert not port.migrating and port.migration_progress == 1.0
+    # migration and the tuner are ported (tests/test_torch_migration.py):
+    # a migration opens, and an engine takes a tuner
+    port.begin_migration(base, torch.Generator(), warmup=10)
+    assert port.migrating and port.migration_progress == 0.0
     port.abort_migration()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pse.SketchServeEngine(port, tuner=object())
+    assert not port.migrating and port.migration_progress == 1.0
+    assert pse.SketchServeEngine(port, tuner=object()).tuner is not None
     # a refused ingest leaves the kernel endpoint untouched
     kport = _pair(use_update_kernel=True)[2]
     before = kport.state_dict()
