@@ -119,7 +119,28 @@ Phases, any failure of which exits non-zero:
    largest, on the direct route too;
 5. drive the main path, the turnstile path, the conservative path and one
    train step once more under torch.profiler for the device's busy and
-   idle share and the share of its busy time in sorting kernels.
+   idle share and the share of its busy time in sorting kernels;
+6. sharded and durable serving, once the earlier phases' tensors are
+   freed.  The sharded phase: the main stream into a 4-shard
+   ``ShardedTopKService`` on the one card through ``SketchServeEngine`` at
+   ``shard_sync_every`` 4 (one K3 launch a shard a block, K4 on the merged
+   tables), again at ``sync_every=1``, re-meshed 4 -> 2 -> 1 halfway, and
+   promoted from a main-path endpoint halfway (``to_sharded``); every
+   merged table equals the main path's bit for bit and every answer equals
+   it up to tie order (the service sorts its candidates); the flat and
+   turnstile streams through ``KernelSketch.sharded_update`` (K1, K6 a
+   shard) equal the flat and turnstile paths' tables; the gradient
+   compressor across 4 replicas (K8f a replica) gives identical replicas
+   the single-replica result bit for bit.  The recovery phase:
+   ``DurableSketchEngine`` over the main endpoint through
+   ``ServingSupervisor`` (WAL fsync'd, a snapshot every 4 blocks, one kill
+   after 10 and the newest snapshot corrupted first), the recovered
+   endpoint equal to the main path bit for bit; the 4-shard snapshot
+   restored into 2 shards through a checkpoint; ``train(ckpt_dir)`` on a
+   reduced config killed once and restarted, equal to an uninterrupted run
+   bit for bit.  Ingest rows/s, sync, query, snapshot, WAL and recovery
+   figures printed; the K1, K3, K4, K6 and K8f rows gain ``sharded`` and
+   ``recovery`` entries in ``launches_by_path``.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -132,8 +153,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -143,7 +167,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree as tr  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.core import countsketch as cs  # noqa: E402
 from repro_torch.core import window as win  # noqa: E402
 from repro_torch.core.fcm import FCM, fcm_spec, fmod_spec  # noqa: E402
@@ -163,9 +187,15 @@ from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import recovery as rec  # noqa: E402
 from repro_torch.serving.autotune import AutoTuner, seeded_key_draw  # noqa: E402
-from repro_torch.serving.sharded_topk import threshold_descent_topk  # noqa: E402
+from repro_torch.serving.faults import FaultPlan, ServingSupervisor  # noqa: E402
+from repro_torch.serving.sharded_topk import (  # noqa: E402
+    ShardedTopKService,
+    threshold_descent_topk,
+)
 from repro_torch.serving.sketch_engine import (  # noqa: E402
     SketchServeEngine,
     SketchTopKEndpoint,
@@ -182,6 +212,7 @@ from repro_torch.streams import (  # noqa: E402
     timestamped_batches,
     zipf_graph_stream,
 )
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training import grad_compression as gc  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
 from repro_torch.training import train_loop as tl  # noqa: E402
@@ -233,6 +264,16 @@ RETUNE_H, RETUNE_BLOCKS = 1 << 24, 16
 FIG10_STREAM = dict(n_src=20_000, n_tgt=60_000, n_edges=300_000, n_occurrences=1_500_000,
                     s_src=0.7, s_tgt=0.7, seed=1)
 FIG10_HW = (2048, 6)
+# the sharded phase: the main stream over SHARDS shards of the one card; the
+# recovery phase: a snapshot every RECOVERY_SNAPSHOT_EVERY of the main
+# stream's 16 blocks (two before the kill, so the corrupted newest one
+# leaves an older one to fall back to) and the kill after
+# RECOVERY_CRASH_AFTER blocks; the restarted train() on a reduced config,
+# TRAIN_CKPT_STEPS steps saved every two, the TRAIN_CKPT_FAIL_AT-th step
+# call failing once
+SHARDS = 4
+RECOVERY_SNAPSHOT_EVERY, RECOVERY_CRASH_AFTER = 4, 10
+TRAIN_CKPT_ARCH, TRAIN_CKPT_STEPS, TRAIN_CKPT_FAIL_AT = "starcoder2-7b", 6, 4
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -606,7 +647,7 @@ def main_path(spec, params, stream, thr, exact_items):
           "topk(100) returns 100 keys by descending estimate")
     e2e = {"kernel": t_k, "plain": t_p, "heavy_hitters_found": int(hh_items.shape[0]),
            "exact_heavy_hitters": int(exact_items.shape[0])}
-    return eng_k, launches, grids, e2e, ans_k[0]
+    return eng_k, launches, grids, e2e, ans_k[0], ans_k[1]
 
 
 def flat_path(spec, params, stream):
@@ -1118,7 +1159,7 @@ def compression_checks(cfg, tcfg, state):
         name, k = "/".join(path), comp.plan.k
         g, r = grads[path], residual[path]
         with Recorded(gc, "_descend_topk") as sel:
-            dense, new_r = gc._compress_leaf(tcfg.compression, comp, g, r)
+            dense, new_r = (x[0] for x in gc._compress_leaf(comp, g[None], r[None]))
         corrected = g.to(torch.float32) + r
         check(torch.equal(dense + new_r, corrected),
               f"{name}: corrected == dense + residual exactly")
@@ -2592,6 +2633,405 @@ def training_profile(seed):
     return busy_share(lambda: tl.train(cfg, tcfg, 1, TRAIN_BATCH, TRAIN_SEQ, state))
 
 
+# --------------------------------------------------------------------------
+# phase 6: sharded serving and durable serving (after the profiles)
+# --------------------------------------------------------------------------
+
+# the kernels the two phases launch, and the path each one's row named its
+# launches under before (rows without ``launches_by_path``)
+PHASE_KERNELS = {"sketch_update": None, "hier_update": None, "hier_query": None,
+                 "sketch_update_signed": "turnstile", "hier_update_signed_f32": "training"}
+
+
+def card_mesh(n: int) -> Mesh:
+    """n shards of the stream, all on the one card."""
+    return Mesh((n,), ("data",), [DEVICE] * n)
+
+
+def canonical(ans):
+    """An answer's keys and estimates by descending estimate, then key: the
+    order in which answers of equal tables and equal candidate sets agree,
+    whatever order their pools list the candidates in."""
+    items, est = ans
+    order = np.lexsort(tuple(items[:, j] for j in reversed(range(items.shape[1]))) + (-est,))
+    return items[order], est[order]
+
+
+def same_up_to_ties(got, want, *, cut: bool) -> bool:
+    """Equal estimates in order, and equal keys once ties are put in key
+    order.  ``cut``: the answer was cut at k (``topk``), so the keys tied
+    at the last estimate may be other keys of that estimate."""
+    if got[0].shape != want[0].shape or not np.array_equal(got[1], want[1]):
+        return False
+    (gi, ge), (wi, _) = canonical(got), canonical(want)
+    keep = ge > ge.min() if (cut and ge.size) else np.ones(ge.shape, bool)
+    return np.array_equal(gi[keep], wi[keep])
+
+
+class Legs:
+    """The kernel launches of each leg of a phase: the counts are set to 0
+    when a leg starts and read when it ends, so that work between legs (a
+    single-shard endpoint fed before its promotion, a check's reference
+    run) counts in none of them.  The phase's launches are the legs' sum."""
+
+    def __init__(self):
+        self.by_leg = {}
+
+    @contextlib.contextmanager
+    def leg(self, name: str):
+        _cuda.reset_launches()
+        yield
+        self.by_leg[name] = dict(_cuda.LAUNCHES)
+
+    def total(self) -> dict:
+        return {k: sum(leg[k] for leg in self.by_leg.values()) for k in _cuda.LAUNCHES}
+
+    def nonzero(self) -> dict:
+        return {name: {k: v for k, v in leg.items() if v} for name, leg in self.by_leg.items()}
+
+
+def tables_equal(state, want) -> bool:
+    return all(np.array_equal(st.table.cpu().numpy(), w) for st, w in zip(state.states, want))
+
+
+def ingest_stream(target, items, freqs, upto=None, start=0) -> None:
+    """Blocks of BLOCK rows from row ``start`` up to ``upto`` into
+    ``target.ingest``."""
+    upto = items.shape[0] if upto is None else upto
+    for s in range(start, upto, BLOCK):
+        target.ingest(items[s : min(s + BLOCK, upto)], freqs[s : min(s + BLOCK, upto)])
+
+
+def sharded_path(spec, params, cs_params, stream, turnstile, thr, main):
+    """The main stream into a ShardedTopKService of SHARDS shards on the one
+    card, through the engine at ``shard_sync_every`` 4, then directly at
+    ``sync_every=1``, re-meshed 4 -> 2 -> 1 halfway, and promoted from a
+    main-path endpoint halfway; the flat and turnstile streams through
+    ``KernelSketch.sharded_update``; the gradient compressor across SHARDS
+    replicas (:func:`dp_compressor_check`).  Every merged table equals the main
+    path's (host copies in ``main``) bit for bit, every answer up to tie
+    order (the service sorts its candidates, the endpoint lists them in
+    pool order)."""
+    items, freqs = stream.items, stream.freqs
+    n_blocks = -(-items.shape[0] // BLOCK)
+    mesh = card_mesh(SHARDS)
+    legs = Legs()
+
+    def check_k3(leg: str, want: int, what: str) -> None:
+        got = legs.by_leg[leg]["hier_update"]
+        check(got == want, f"{leg}: K3 folded each shard's slice of every block once "
+                           f"({got} launches, {what})")
+
+    def check_k4(leg: str) -> None:
+        check(legs.by_leg[leg]["hier_query"] > 0,
+              f"{leg}: K4 scored the descent on the merged tables")
+
+    with legs.leg("engine"):
+        svc = ShardedTopKService(spec, params, mesh, max_candidates_per_group=POOL,
+                                 sync_every=None)
+        eng = SketchServeEngine(svc, max_staleness=0, shard_sync_every=4)
+        sync_s = []
+        psum = svc.sync
+        svc.sync = lambda: sync_s.append(wall(psum)[1])
+        _, t_ingest = wall(lambda: ingest_stream(eng, items, freqs))
+        _, t_snap = wall(eng.sync)
+        eng.heavy_hitters(thr)                       # warm-up: first launches
+        hh_ans, t_hh = wall(lambda: eng.heavy_hitters(thr))
+        top_ans, t_top = wall(lambda: eng.topk(100))
+    n_k3 = legs.by_leg["engine"]["hier_update"]
+    check_k3("engine", SHARDS * n_blocks, f"{SHARDS} x {n_blocks} blocks")
+    check_k4("engine")
+    check(tables_equal(svc.state(), main["tables"]),
+          "4-shard merged tables equal the main path's bit for bit")
+    check(same_up_to_ties(hh_ans, main["hh"], cut=False)
+          and same_up_to_ties(top_ans, main["top"], cut=True),
+          "4-shard heavy_hitters and topk(100) equal the main path's")
+    sd4 = svc.state_dict()
+    e2e = {"shards": SHARDS, "blocks": n_blocks, "k3_launches": n_k3,
+           "ingest_s": t_ingest, "ingest_rows_per_s": items.shape[0] / t_ingest,
+           "syncs": len(sync_s), "sync_ms": [t * 1e3 for t in sync_s],
+           "snapshot_ms": t_snap * 1e3, "heavy_hitters_ms": t_hh * 1e3,
+           "topk100_ms": t_top * 1e3,
+           "merged_table_gb": sum(nbytes(st.table) for st in svc.state().states) / 1e9,
+           "local_tables_gb": sum(nbytes(b) for b in svc._local) / 1e9}
+    del eng, svc
+
+    with legs.leg("sync_every_1"):
+        one = ShardedTopKService(spec, params, mesh, max_candidates_per_group=POOL,
+                                 sync_every=1)
+        _, t_one = wall(lambda: ingest_stream(one, items, freqs))
+        answers = one.heavy_hitters(thr), one.topk(100)
+    check_k3("sync_every_1", SHARDS * n_blocks, f"{SHARDS} x {n_blocks} blocks")
+    check_k4("sync_every_1")
+    check(tables_equal(one.state(), main["tables"])
+          and same_answers(answers[0], hh_ans) and same_answers(answers[1], top_ans),
+          "sync_every=1 equals the engine's cadence of 4 bit for bit")
+    e2e.update(sync_every_1_ingest_s=t_one, sync_every_1_rows_per_s=items.shape[0] / t_one)
+    del one
+
+    b_half, b_three_q = n_blocks // 2, 3 * n_blocks // 4
+    half, three_q = b_half * BLOCK, b_three_q * BLOCK
+    with legs.leg("remesh"):
+        svc = ShardedTopKService(spec, params, mesh, max_candidates_per_group=POOL,
+                                 sync_every=4)
+        ingest_stream(svc, items, freqs, half)
+        _, t_remesh2 = wall(lambda: svc.remesh(card_mesh(2)))
+        ingest_stream(svc, items, freqs, three_q, half)
+        _, t_remesh1 = wall(lambda: svc.remesh(card_mesh(1)))
+        ingest_stream(svc, items, freqs, None, three_q)
+        answers = svc.heavy_hitters(thr), svc.topk(100)
+    check_k3("remesh", SHARDS * b_half + 2 * (b_three_q - b_half) + (n_blocks - b_three_q),
+             f"{SHARDS}, 2 and 1 shards over {b_half}, {b_three_q - b_half} and "
+             f"{n_blocks - b_three_q} blocks")
+    check_k4("remesh")
+    check(svc.n_shards == 1 and tables_equal(svc.state(), main["tables"])
+          and same_up_to_ties(answers[0], main["hh"], cut=False)
+          and same_up_to_ties(answers[1], main["top"], cut=True),
+          "remesh 4 -> 2 -> 1 mid-stream equals the main path")
+    del svc
+
+    # the single-shard endpoint's own launches belong to no leg
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL)
+    ingest_stream(ep, items, freqs, half)
+    promoted, t_promote = wall(lambda: ep.to_sharded(mesh, sync_every=4))
+    ep.ingest(items[:BLOCK], freqs[:BLOCK])      # the tables were copied, not aliased
+    del ep
+    with legs.leg("to_sharded"):
+        ingest_stream(promoted, items, freqs, None, half)
+        answers = promoted.heavy_hitters(thr), promoted.topk(100)
+    check_k3("to_sharded", SHARDS * (n_blocks - b_half),
+             f"{SHARDS} x {n_blocks - b_half} blocks after the promotion")
+    check_k4("to_sharded")
+    check(tables_equal(promoted.state(), main["tables"])
+          and same_up_to_ties(answers[0], main["hh"], cut=False)
+          and same_up_to_ties(answers[1], main["top"], cut=True),
+          "to_sharded halfway from the main endpoint equals the main path")
+    del promoted
+    e2e.update(remesh_4_to_2_ms=t_remesh2 * 1e3, remesh_2_to_1_ms=t_remesh1 * 1e3,
+               to_sharded_ms=t_promote * 1e3)
+
+    ks = KernelSketch(spec, params, block_b=BLOCK)
+    with legs.leg("flat"):
+        _, t_flat = wall(lambda: [ks.sharded_update(mesh, ("data",), items[s : s + BLOCK],
+                                                    freqs[s : s + BLOCK])
+                                  for s in range(0, items.shape[0], BLOCK)])
+    check(np.array_equal(ks.table_view(), main["flat"]),
+          "KernelSketch.sharded_update equals the flat path's table bit for bit")
+    t_items, t_freqs, _ = turnstile
+    ks = KernelSketch(spec, cs_params, block_b=BLOCK, mode="signed")
+    with legs.leg("signed"):
+        _, t_signed = wall(lambda: [ks.sharded_update(mesh, ("data",), t_items[s : s + BLOCK],
+                                                      t_freqs[s : s + BLOCK])
+                                    for s in range(0, t_items.shape[0], BLOCK)])
+    check(np.array_equal(ks.table_view(), main["signed"]),
+          "signed KernelSketch.sharded_update equals the turnstile path's table bit for bit")
+    del ks
+    check(legs.by_leg["flat"]["sketch_update"] == SHARDS * n_blocks
+          and legs.by_leg["signed"]["sketch_update_signed"]
+          == SHARDS * -(-t_items.shape[0] // BLOCK),
+          "K1 and K6 folded each shard's slice of every block once")
+    e2e["dp_compressor"] = dp_compressor_check(legs)
+    launches = legs.total()
+    e2e["launches_by_leg"] = legs.nonzero()
+    e2e.update(flat_sharded_update_s=t_flat, flat_rows_per_s=items.shape[0] / t_flat,
+               signed_sharded_update_s=t_signed,
+               signed_rows_per_s=t_items.shape[0] / t_signed)
+    log(f"sharded phase launches: {launches}")
+    log(f"sharded: {SHARDS} shards ingest {e2e['ingest_rows_per_s']:.1f} rows/s "
+        f"({t_ingest:.3f} s, {len(sync_s)} syncs, mean "
+        f"{np.mean(e2e['sync_ms']):.3f} ms), sync_every=1 {e2e['sync_every_1_rows_per_s']:.1f} "
+        f"rows/s, heavy_hitters {t_hh * 1e3:.3f} ms, topk(100) {t_top * 1e3:.3f} ms, K3 "
+        f"{n_k3} launches, tables {e2e['merged_table_gb']:.3f} GB merged + "
+        f"{e2e['local_tables_gb']:.3f} GB of locals")
+    torch.cuda.empty_cache()
+    return launches, e2e, sd4
+
+
+def dp_compressor_check(legs: Legs) -> dict:
+    """The compressor across SHARDS data-parallel replicas of the training
+    path's ``attn/wk`` leaf (4,608 x 512) on the card, integer-valued
+    gradients (every sum exact): each replica's tables one K8f launch,
+    identical replicas reproduce the single-replica result bit for bit,
+    and replicas fed different gradients stay bit-identical.  The
+    single-replica run it is held against is outside the leg."""
+    shape = (4608, 512)
+    local = gc.CompressionConfig(enabled=True)
+    dp = dataclasses.replace(local, axis_name="dp")
+    rng = np.random.default_rng(23)
+    g = torch.from_numpy(rng.integers(-9, 10, (SHARDS,) + shape).astype(np.float32)).to(DEVICE)
+    state = gc.init_compression(local, {"w": g[0]}, torch.Generator().manual_seed(23))
+    one, _, _ = gc.compress_decompress(local, {"w": g[0]}, state)
+    with legs.leg("dp_compressor"):
+        same, _, _ = gc.compress_decompress(
+            dp, {"w": g[0].expand(SHARDS, *shape).contiguous()},
+            gc.replicate_state(state, SHARDS))
+        (mixed, _, _), t_mixed = wall(lambda: gc.compress_decompress(
+            dp, {"w": g}, gc.replicate_state(state, SHARDS)))
+    check(legs.by_leg["dp_compressor"]["hier_update_signed_f32"] == 2 * SHARDS,
+          "the DP compressor folded each replica's tables with one K8f launch")
+    check(all(torch.equal(same["w"][i], one["w"]) for i in range(SHARDS))
+          and all(torch.equal(mixed["w"][i], mixed["w"][0]) for i in range(SHARDS)),
+          "DP compressor: identical replicas give the single-replica result, and "
+          "replicas stay bit-identical")
+    return {"replicas": SHARDS, "leaf": list(shape), "ms": t_mixed * 1e3,
+            "nonzeros": int((mixed["w"][0] != 0).sum())}
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, out: list):
+    """Appends the host seconds of every call of ``module.name`` to ``out``
+    while installed."""
+    orig = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        res, secs = wall(lambda: orig(*args, **kwargs))
+        out.append(secs)
+        return res
+
+    setattr(module, name, timed)
+    try:
+        yield out
+    finally:
+        setattr(module, name, orig)
+
+
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files) / 1e6
+
+
+def train_ckpt_check(directory: str, seed: int) -> dict:
+    """``train(ckpt_dir)`` on a reduced config with compression (K8f) and
+    the bigram sketch (K1): a run whose fourth step fails once, restored
+    from the last checkpoint and replayed, ends bit for bit where an
+    uninterrupted run ends."""
+    cfg = get_reduced(TRAIN_CKPT_ARCH)
+    tcfg = tl.TrainConfig(optimizer=opt.OptimizerConfig(lr=1e-3, warmup_steps=0),
+                          compression=gc.CompressionConfig(enabled=True, min_size=1024))
+
+    def run(sub):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return tl.train(cfg, tcfg, TRAIN_CKPT_STEPS, 4, 64, gen,
+                        ckpt_dir=os.path.join(directory, sub), save_every=2, device=DEVICE)[0]
+
+    whole, t_whole = wall(lambda: run("whole"))
+    real, calls = tl.make_train_step, [0]
+
+    def flaky(c, t):
+        step = real(c, t)
+
+        def once(state, batch):
+            calls[0] += 1
+            if calls[0] == TRAIN_CKPT_FAIL_AT:
+                raise RuntimeError("injected device loss")
+            return step(state, batch)
+        return once
+
+    tl.make_train_step = flaky
+    try:
+        killed, t_killed = wall(lambda: run("killed"))
+    finally:
+        tl.make_train_step = real
+    fa, fb = ckpt.flatten_with_paths(whole), ckpt.flatten_with_paths(killed)
+    same = [pa == pb and (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                          else np.array_equal(a, b)) for (pa, a), (pb, b) in zip(fa, fb)]
+    check(len(fa) == len(fb) and all(same),
+          f"train(ckpt_dir) killed at step {TRAIN_CKPT_FAIL_AT - 1} and restarted equals "
+          f"the uninterrupted run bit for bit ({sum(same)} of {len(fa)} leaves)")
+    return {"arch": TRAIN_CKPT_ARCH, "steps": TRAIN_CKPT_STEPS, "leaves": len(fa),
+            "step_calls_with_replay": calls[0], "uninterrupted_s": t_whole,
+            "killed_and_restarted_s": t_killed,
+            "checkpoint_mb": dir_mb(os.path.join(directory, "whole"))}
+
+
+def recovery_path(spec, params, stream, thr, main, sd4, seed):
+    """``DurableSketchEngine`` over the main endpoint on the card through
+    ``ServingSupervisor``: the WAL fsync'd, a snapshot every
+    RECOVERY_SNAPSHOT_EVERY blocks, one kill after RECOVERY_CRASH_AFTER
+    blocks with the newest snapshot corrupted before the recovery; the
+    recovered endpoint equals the uninterrupted main path bit for bit.
+    Then the 4-shard snapshot of the sharded phase restored into 2 shards
+    through a checkpoint, and ``train(ckpt_dir)`` killed and restarted."""
+    items, freqs = stream.items, stream.freqs
+    ops = [("block", items[s : s + BLOCK], freqs[s : s + BLOCK])
+           for s in range(0, items.shape[0], BLOCK)]
+    d = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    legs = Legs()
+    try:
+        def factory():
+            return SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL)
+
+        sup = ServingSupervisor(d, factory, snapshot_every=RECOVERY_SNAPSHOT_EVERY,
+                                fsync=True, engine_kwargs={"max_staleness": 0})
+        plan = FaultPlan(crash_after_ops=RECOVERY_CRASH_AFTER, max_crashes=1,
+                         corrupt_newest_snapshot=True)
+        snap_s, recover_s, snap_mb = [], [], []
+        with (legs.leg("durable_endpoint"),
+              timed_calls(rec.DurableSketchEngine, "snapshot", snap_s),
+              timed_calls(rec, "recover", recover_s)):
+            (eng, report), t_run = wall(lambda: sup.run(ops, plan))
+            eng.drain()
+            answers = eng.heavy_hitters(thr), eng.topk(100)
+        last = report.recoveries[-1]
+        check(report.crashes == 1 and last.corrupted_steps and last.restored_step is not None
+              and last.restored_step < last.corrupted_steps[0],
+              f"one kill; the corrupted newest snapshot {last.corrupted_steps} skipped for "
+              f"step {last.restored_step}")
+        check(tables_equal(eng.backend.state, main["tables"])
+              and same_answers(answers[0], main["hh"])
+              and same_answers(answers[1], main["top"]),
+              "the recovered endpoint equals the uninterrupted main path bit for bit")
+        snaps = os.path.join(d, "snapshots")
+        snap_mb = [dir_mb(os.path.join(snaps, f"step_{s:08d}")) for s in ckpt.list_steps(snaps)]
+        wal_mb = dir_mb(os.path.join(d, "wal"))
+        eng.close()
+
+        shard_dir = os.path.join(d, "sharded")
+        _, t_save4 = wall(lambda: ckpt.save(shard_dir, 0, {"backend": sd4}))
+        with legs.leg("sharded_restore"):
+            svc = ShardedTopKService(spec, params, card_mesh(2), max_candidates_per_group=POOL)
+            (_, trees), t_restore4 = wall(lambda: ckpt.restore_trees(shard_dir))
+            svc.load_state_dict(trees["backend"])
+            answers = svc.heavy_hitters(thr), svc.topk(100)
+        check(svc.n_shards == 2 and tables_equal(svc.state(), main["tables"])
+              and same_up_to_ties(answers[0], main["hh"], cut=False)
+              and same_up_to_ties(answers[1], main["top"], cut=True)
+              and legs.by_leg["sharded_restore"]["hier_query"] > 0,
+              "the 4-shard snapshot restored into 2 shards equals the main path, on K4")
+        del svc, trees
+        with legs.leg("train_ckpt"):
+            train = train_ckpt_check(d, seed)
+        check(legs.by_leg["train_ckpt"]["hier_update_signed_f32"] > 0,
+              "the restarted train() compressed on K8f")
+        launches = legs.total()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    e2e = {"blocks": len(ops), "snapshot_every": RECOVERY_SNAPSHOT_EVERY,
+           "crash_after": RECOVERY_CRASH_AFTER, "run_s": t_run,
+           "snapshot_s": snap_s, "snapshot_mb": snap_mb, "wal_mb": wal_mb,
+           "recover_s": recover_s, "restored_step": last.restored_step,
+           "corrupted_steps": last.corrupted_steps,
+           "replayed_blocks": last.replayed_blocks,
+           "sharded_snapshot_save_s": t_save4, "sharded_snapshot_restore_s": t_restore4,
+           "train": train, "launches_by_leg": legs.nonzero()}
+    log(f"recovery phase launches: {launches}")
+    log(f"recovery: run {t_run:.3f} s with one kill; snapshots {snap_mb} MB in "
+        f"{snap_s} s; WAL {wal_mb:.3f} MB; recovery (restore + replay of "
+        f"{last.replayed_blocks} blocks) {recover_s} s; train(ckpt_dir) {train}")
+    return launches, e2e
+
+
+def add_phase_launches(rows, by_phase: dict) -> None:
+    """Each phase kernel's row gains its launches in each of ``by_phase``'s
+    paths under ``launches_by_path``; ``launches`` stays their sum."""
+    for name, old_path in PHASE_KERNELS.items():
+        row = next(r for r in rows if r["name"] == name)
+        by = row.setdefault("launches_by_path", {old_path: row["launches"]})
+        for path, launches in by_phase.items():
+            by[path] = launches[name]
+        row["launches"] = sum(by.values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2633,8 +3073,8 @@ def main(argv=None) -> int:
             pool.offer(stream.items[s : s + BLOCK, [j]], stream.freqs[s : s + BLOCK])
     t_pools = time.perf_counter() - t
 
-    eng, main_launches, grids, e2e, main_answer = main_path(spec, params, stream, thr,
-                                                            exact_items)
+    eng, main_launches, grids, e2e, main_answer, main_top = main_path(
+        spec, params, stream, thr, exact_items)
     e2e["pools_only_s"] = t_pools
     ks, flat_launches, flat_e2e = flat_path(spec, params, stream)
     e2e["flat"] = flat_e2e
@@ -2733,6 +3173,12 @@ def main(argv=None) -> int:
             row["launches_by_path"] = by_path[row["name"]]
     check(len(kr.rows) == len(KERNELS) and {r["name"] for r in kr.rows} == set(KERNELS),
           "a row for every kernel")
+    # host copies of what the sharded and recovery phases are held against
+    main_sd = eng.backend.state_dict()
+    main_host = {"tables": [main_sd[f"level{i}.table"] for i in range(hspec.n_levels)],
+                 "hh": main_answer, "top": main_top, "flat": ks.table_view(),
+                 "signed": ks_s.table_view()}
+    del main_sd
     del eng, ks, grids, kh_s, ks_s, sgrids, ep_c, ks_c, acc_ks, acc_linear, f_flat, f_hier
     del f_signed
     del leaves
@@ -2743,6 +3189,16 @@ def main(argv=None) -> int:
         group_candidates(spec, stream.items))
     cons_e2e["profile"] = conservative_profile(spec, params, stream, thr)
     train_e2e["profile"] = training_profile(args.seed)
+    torch.cuda.empty_cache()
+
+    # phase 6: sharded and durable serving
+    (sh_launches, e2e["sharded"], sd4), t_sh = wall(
+        lambda: sharded_path(spec, params, cs_params, stream, turnstile, thr, main_host))
+    (rec_launches, e2e["recovery"]), t_rec = wall(
+        lambda: recovery_path(spec, params, stream, thr, main_host, sd4, args.seed))
+    e2e["sharded"]["phase_s"], e2e["recovery"]["phase_s"] = t_sh, t_rec
+    log(f"sharded phase {t_sh:.1f} s, recovery phase {t_rec:.1f} s")
+    add_phase_launches(kr.rows, {"sharded": sh_launches, "recovery": rec_launches})
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

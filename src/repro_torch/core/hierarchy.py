@@ -35,8 +35,8 @@ The conservative folds share the cascade's one hash pass and then fold
 every level sequentially (the row-coupling min keeps the folds per level):
 on the card all levels in one K5i launch, one CTA per level
 (kernels/sketch_update_conservative.py).  Conservative tables are not
-linear in the stream and never enter :func:`merge` or the sharded build,
-which arrives with ROADMAP item 12.
+linear in the stream and never enter :func:`merge` or
+:func:`sharded_hierarchy_build`, which refuses them.
 """
 from __future__ import annotations
 
@@ -322,15 +322,24 @@ def fold_indices(state: HierarchyState, idxs: Tuple[torch.Tensor, ...],
 def sharded_hierarchy_build(hspec: HierarchySpec, state: HierarchyState,
                             mesh, data_axes, items, freqs, *,
                             mode: str = "linear") -> HierarchyState:
-    """The reference's sharded cascade fold with a per-level psum.
+    """Distributed build: sharded cascade fold + per-level psum (exact).
 
-    ``mode`` exists only to be refused, as in the reference: a
-    conservatively built hierarchy has non-linear tables and must never
-    enter a psum.  The fold itself is not ported yet."""
+    Each shard of ``mesh``'s ``data_axes`` hashes its slice of the block
+    once and folds it into every level (one K3 launch on its device, K3f
+    for float32 levels; core.distributed.sharded_hierarchy_fold), and the
+    shards' deltas are psum-merged onto the mesh's first device and added
+    to copies of ``state``'s tables there.  ``mode`` exists only to be
+    refused: a conservatively built hierarchy has non-linear tables and
+    must never enter a psum."""
+    from repro_torch.core import distributed as dist
+
     require_linear(mode, "sharded_hierarchy_build")
-    raise NotImplementedError(
-        "sharded_hierarchy_build is not ported yet (ROADMAP item 12, "
-        "sharding)")
+    deltas = dist.sharded_hierarchy_fold(
+        hspec, state.states[-1].params, mesh, data_axes, items, freqs,
+        table_dtypes=tuple(st.table.dtype for st in state.states))
+    return HierarchyState(states=tuple(
+        sk.SketchState(params=st.params, table=st.table + d.to(st.table.device))
+        for st, d in zip(state.states, deltas)))
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,10 @@ the leaf's path in the tree.
 A reference ``WindowState`` (its level params and ring, as numpy) becomes
 the port's concatenated per-slot buffers, and an FCM's params, table and
 Misra-Gries counters cross the same way.  The windowed service's own
-``load_state_dict`` takes the reference service's ``state_dict()``.
+``load_state_dict`` takes the reference service's ``state_dict()``, and so
+does the sharded service's (any saved shard count).  Durable state needs
+no conversion: ``training/checkpoint.py`` and ``serving/recovery.py`` read
+and write the reference's checkpoint and write-ahead-log formats.
 """
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ stream, so ``merge``/``state()`` are refused; queries are unchanged (K2).
 Every block is folded by K5 (kernels/sketch_update_conservative.py), in
 shared memory when the table fits one CTA's and in global memory
 otherwise; both routes are the hand-written kernel.  int32 and float32
-tables are both exact there.  The sharded fold arrives with item 12.
+tables are both exact there.  ``sharded_update`` folds a block sharded
+over a device mesh (linear and signed modes; core/distributed.py).
 """
 from __future__ import annotations
 
@@ -212,14 +213,31 @@ class KernelSketch:
                                    self.params.q, self.params.r, self.cs_params.sign_q,
                                    self.cs_params.sign_r)
 
-    def sharded_update(self, *args, **kwargs) -> None:
-        """The reference's shard_map/psum fold; not ported yet.  A
-        conservative sketch refuses first, as the reference does: its table
-        cannot be psum-merged."""
+    def sharded_update(self, mesh, data_axes, items, freqs) -> None:
+        """Distributed fold: shard the block over ``mesh``'s ``data_axes``
+        (padded with :func:`~repro_torch.core.distributed.pad_block_pow2`,
+        as the reference pads it), fold each shard's slice on its device
+        (one K1 launch a shard in linear mode, K6 in signed mode; K1f/K6f
+        on float32), psum-merge the deltas and add them to the table.
+
+        Linear and signed modes: the conservative table is not linear in
+        the stream, so its sharded folds cannot be psum-merged.  As in the
+        reference, the kernels' frequency bounds are not applied here (the
+        reference folds this path with its exact jnp scatter)."""
+        from repro_torch.core import distributed as dist
+
         require_linear(self.mode, "KernelSketch.sharded_update")
-        raise NotImplementedError(
-            "KernelSketch.sharded_update is not ported yet (ROADMAP item 12, "
-            "sharding)")
+        items = np.asarray(items, dtype=np.uint32)
+        freqs = np.asarray(freqs)
+        items, freqs, _ = dist.pad_block_pow2(items, freqs, mesh.axis_size(data_axes))
+        if self.mode == "signed":
+            delta = dist.sharded_signed_build(self.spec, self.cs_params, mesh,
+                                              tuple(data_axes), items, freqs,
+                                              table_dtype=self.table.dtype)
+        else:
+            delta = dist.sharded_build(self.spec, self.params, mesh, tuple(data_axes),
+                                       items, freqs, table_dtype=self.table.dtype)
+        self.table[:, : self.spec.table_size].add_(delta.to(self.device))
 
     # -- interop ------------------------------------------------------------
     def merge(self, other: "KernelSketch") -> None:

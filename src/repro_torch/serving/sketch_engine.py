@@ -19,11 +19,13 @@ modes:
     warmup mass.
 
 :class:`SketchServeEngine`
-    the async engine in front of an endpoint or a windowed service
-    (serving/windowed_topk.py): staged ingest on the plain path, snapshot
-    queries under a staleness bound, batched multi-request descent
-    (``submit`` + ``flush``), the epoch clock (``advance``) and the
-    auto-tuner (serving/autotune.py), ticked on every ``sync``.
+    the async engine in front of an endpoint, a windowed service
+    (serving/windowed_topk.py) or a sharded service
+    (serving/sharded_topk.py): staged ingest on the plain path, the
+    sharded backend's psum cadence, snapshot queries under a staleness
+    bound, batched multi-request descent (``submit`` + ``flush``), the
+    epoch clock (``advance``) and the auto-tuner (serving/autotune.py),
+    ticked on every ``sync``.
 
 Semantics are the reference's, with one difference of mechanism: where the
 reference donates table buffers to jitted folds, the port folds in place.
@@ -32,8 +34,9 @@ would see later ingest and silently break the staleness contract.  The
 staged fold runs on the current stream; overlapping it with the next
 block's hash on a side stream is later performance work.
 
-Not ported yet, and refused by name: ``to_sharded`` and sharded backends
-(ROADMAP item 12).
+``SketchTopKEndpoint.to_sharded`` promotes an endpoint to a
+:class:`~repro_torch.serving.sharded_topk.ShardedTopKService`; the engine
+drives such a backend's psum cadence (``shard_sync_every``).
 """
 from __future__ import annotations
 
@@ -100,6 +103,7 @@ class SketchTopKEndpoint(MigratingSurface):
         self._use_update_kernel = use_update_kernel
         self.max_candidates = int(max_candidates_per_group)
         self.use_kernel = kernel_switch(use_kernel, self.device)
+        self._use_kernel_given = use_kernel   # to_sharded resolves it on its mesh
         self.mode = mode
         self.total = 0
         self._pools: List[SpaceSaving] = [
@@ -318,19 +322,42 @@ class SketchTopKEndpoint(MigratingSurface):
             n_modules=self.hspec.base.schema.modularity,
             min_threshold=min_threshold)
 
-    def to_sharded(self, *args, **kwargs):
-        """Promotion to a sharded service: not ported yet.  A conservative
-        endpoint refuses first, as the reference does: its tables must
-        never enter the psum sync path."""
+    def to_sharded(self, mesh, *, data_axes=None,
+                   sync_every: Optional[int] = 1) -> "ShardedTopKService":
+        """Promote this single-shard endpoint to a ShardedTopKService on
+        ``mesh``.
+
+        Carries over the hierarchy tables (COPIED onto the mesh's first
+        device: the endpoint folds its tables in place, so an alias would
+        see its later ingest), the hash params, the candidate pools, the
+        stream total and ``use_kernel`` as the endpoint's caller gave it
+        (``None`` follows the mesh's first device); later ingest runs
+        sharded over the mesh.  Linear
+        endpoints only: a conservative endpoint's tables are not linear in
+        the stream and must never enter the psum sync path."""
+        from repro_torch.serving.sharded_topk import ShardedTopKService
+
         require_not_migrating(self._migration, "SketchTopKEndpoint.to_sharded")
         if self.mode != "linear":
             raise ValueError(
                 "to_sharded is only defined for linear endpoints: "
                 "conservative tables cannot be psum-merged, so a "
                 "conservative endpoint must stay single-shard")
-        raise NotImplementedError(
-            "SketchTopKEndpoint.to_sharded: sharded serving is not ported "
-            "yet (ROADMAP item 12)")
+        state = self.state
+        fine = state.states[-1].params
+        svc = ShardedTopKService(
+            self.hspec.base, (fine.q, fine.r), mesh, data_axes=data_axes,
+            max_candidates_per_group=self.max_candidates,
+            sync_every=sync_every, use_kernel=self._use_kernel_given,
+            dtype=state.states[0].table.dtype)
+        svc.merged = hh.HierarchyState(states=tuple(
+            sk.SketchState(params=mine.params,
+                           table=st.table.to(svc.device, copy=True).contiguous())
+            for mine, st in zip(svc.merged.states, state.states)))
+        svc.total = self.total
+        svc._shard_pools[0] = [SpaceSaving.fold([p]) for p in self._pools]
+        svc._global_pools = [SpaceSaving.fold([p]) for p in self._pools]
+        return svc
 
     def merge_from(self, other: "SketchTopKEndpoint") -> None:
         """Fold another endpoint's sketch + pools in (cross-shard merge).
@@ -413,7 +440,8 @@ class SketchSnapshot:
 
 
 class SketchServeEngine:
-    """Async serving engine over a :class:`SketchTopKEndpoint` or a
+    """Async serving engine over a :class:`SketchTopKEndpoint`, a
+    :class:`~repro_torch.serving.sharded_topk.ShardedTopKService` or a
     :class:`~repro_torch.serving.windowed_topk.WindowedTopKService` --
     anything with ``ingest``/``state``/``candidates``/``total``/``hspec``.
 
@@ -440,19 +468,24 @@ class SketchServeEngine:
     snapshot.  An optional ``tuner`` (serving/autotune.AutoTuner) steps on
     every :meth:`sync`, so retune decisions and migrations happen at
     snapshot boundaries; migration double-writes ride inside the backend's
-    own ingest.  Sharded backends arrive with ROADMAP item 12.
+    own ingest.  A sharded backend's psum merge runs every
+    ``shard_sync_every`` ingested blocks (default 4, as the reference's),
+    without refreshing the snapshot, which stays on the staleness clock.
 
     Thread safety: one re-entrant lock around every entry point.
     """
 
     def __init__(self, backend, *, max_staleness: Optional[int] = 0,
-                 tuner=None):
+                 shard_sync_every: Optional[int] = 4, tuner=None):
         self.backend = backend
         self.max_staleness = max_staleness
+        self.shard_sync_every = shard_sync_every
         self.tuner = tuner
         self._lock = threading.RLock()
         self._staged: Optional[StagedBlock] = None
         self._mass = 0                       # engine staleness watermark
+        self._blocks_since_psum = 0
+        self._is_sharded = hasattr(backend, "sync") and hasattr(backend, "n_shards")
         self._queue: List[SketchQuery] = []
         self._next_rid = 0
         self._snap: Optional[SketchSnapshot] = None
@@ -481,6 +514,14 @@ class SketchServeEngine:
             else:
                 self.backend.ingest(items, freqs)
             self._mass += int(freqs.sum())
+            if self._is_sharded and self.shard_sync_every:
+                self._blocks_since_psum += 1
+                if self._blocks_since_psum >= self.shard_sync_every:
+                    # the psum cadence: merge the local deltas into the
+                    # backend's serving tables WITHOUT refreshing the
+                    # engine snapshot (that stays on the staleness clock)
+                    self.backend.sync()
+                    self._blocks_since_psum = 0
 
     def _fold_pending(self) -> None:
         if self._staged is not None:
@@ -508,7 +549,7 @@ class SketchServeEngine:
     def _take_snapshot(self) -> SketchSnapshot:
         b = self.backend
         st = b.state
-        if callable(st):                     # the windowed service's method
+        if callable(st):                     # the sharded/windowed services' method
             st = st()
         state = hh.HierarchyState(states=tuple(
             sk.SketchState(params=s.params, table=s.table.clone())
@@ -535,13 +576,17 @@ class SketchServeEngine:
         with self._lock:
             self._staged = None             # staged indices from the old life
             self._mass = int(mass)
+            self._blocks_since_psum = 0
             self._snap = self._take_snapshot()
 
     def sync(self) -> SketchSnapshot:
-        """Drain the pipeline, refresh the snapshot and tick the auto-tuner.
-        The one barrier in the engine."""
+        """Drain the pipeline, psum-merge (sharded), refresh the snapshot and
+        tick the auto-tuner.  The one barrier in the engine."""
         with self._lock:
             self._fold_pending()
+            if self._is_sharded:
+                self.backend.sync()
+                self._blocks_since_psum = 0
             self._snap = self._take_snapshot()
             if self.tuner is not None:
                 # retune on snapshot boundaries only: a migration opened here

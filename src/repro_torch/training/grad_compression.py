@@ -23,8 +23,16 @@ packages.
 Hash params cannot come from a jax key: :func:`init_compression` draws them
 from a ``torch.Generator`` leaf by leaf, in the reference's leaf order, or
 takes each leaf's ``(q, r, sign_q, sign_r)`` arrays (e.g. the reference's
-own draw, ``repro_torch.interop.compression_state_from_numpy``).  The DP
-table all-reduce (``axis_name``) is not ported yet (ROADMAP item 12).
+own draw, ``repro_torch.interop.compression_state_from_numpy``).
+
+With ``axis_name`` set, :func:`compress_decompress` performs the whole
+data-parallel reduction over replicas stacked on a leading axis, as
+``jax.pmap`` takes them (:func:`replicate_state` stacks a state's
+residuals): each replica's tables are folded by K8f, then pmean'd (a sum in
+replica order, then a division by n, as the reference's ``pmean``), one
+descent runs on the merged tables, the k selected values are pmean'd, and
+passthrough leaves are pmean'd.  Every replica comes back with the same
+values, bit for bit.
 """
 from __future__ import annotations
 
@@ -54,13 +62,6 @@ class CompressionConfig:
     k: Optional[int] = None   # heavy coords kept per leaf (None: h // 4)
     beam_factor: int = 2      # descent keeps min(rows, beam_factor * k) rows
     axis_name: Optional[str] = None  # DP axis: all-reduce TABLES, not grads
-
-
-def _require_local(cfg: CompressionConfig) -> None:
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "CompressionConfig.axis_name: the DP all-reduce of the sketch "
-            "tables is not ported yet (ROADMAP item 12, sharding)")
 
 
 def _leaf_dims(shape: Tuple[int, ...]) -> Tuple[int, int]:
@@ -132,7 +133,11 @@ def _leaf_plan(cfg: CompressionConfig, shape: Tuple[int, ...]) -> LeafPlan:
 
 @dataclasses.dataclass
 class LeafCompressor:
-    """One leaf's frozen plan, hash draw and coordinate keys."""
+    """One leaf's frozen plan, hash draw and coordinate keys.  The arrays
+    are ``params`` and ``coords`` (what a checkpoint stores, as the
+    reference's pytree children); the plan is static."""
+    _tree_fields = ("params", "coords")
+
     plan: LeafPlan
     params: cs.CountSketchParams
     coords: torch.Tensor      # int32[N, 2]
@@ -203,20 +208,43 @@ def _descend_topk(plan: LeafPlan, params: cs.CountSketchParams,
     return top_rows[bi] * plan.cols + ci
 
 
-def _compress_leaf(cfg: CompressionConfig, comp: LeafCompressor,
-                   g: torch.Tensor, r: torch.Tensor):
-    """One leaf's sketch -> descent -> exact values: (dense float32 output,
-    new residual), with ``corrected == dense + residual`` exactly."""
-    plan = comp.plan
+def pmean(xs) -> torch.Tensor:
+    """The mean of the replicas ``xs`` (a sequence, or a tensor's slices
+    along axis 0) as the reference's ``jax.lax.pmean`` computes it: the
+    sum, in replica order, then a division by the replica count.  One
+    replica comes back as it is."""
+    if len(xs) == 1:
+        return xs[0]
+    total = xs[0].clone()
+    for x in xs[1:]:
+        total += x
+    return total / len(xs)
+
+
+def _replicated(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` repeated on a new leading axis of n replicas (a view at n = 1)."""
+    return x.unsqueeze(0).expand(n, *x.shape).contiguous()
+
+
+def _compress_leaf(comp: LeafCompressor, g: torch.Tensor, r: torch.Tensor):
+    """One leaf over n replicas stacked on axis 0: (dense float32 output,
+    the same on every replica, [n, ...]; each replica's new residual).
+
+    Each replica's corrected gradient is folded into its own tables (K8f),
+    the tables are pmean'd, ONE descent selects k coordinates on them, and
+    the replicas' exact values there are pmean'd, so that
+    ``corrected == dense + residual`` exactly at n = 1."""
+    plan, n = comp.plan, g.shape[0]
     corrected = g.to(torch.float32) + r
-    vals = corrected.reshape(-1)
-    tables = cs.hier_fold_zero_tables(plan.hspec, comp.params, comp.coords, vals)
+    vals = corrected.reshape(n, -1)
+    per_replica = [cs.hier_fold_zero_tables(plan.hspec, comp.params, comp.coords, v)
+                   for v in vals]
+    tables = tuple(pmean(level) for level in zip(*per_replica))
     coord_flat = _descend_topk(plan, comp.params, tables)
-    dense = torch.zeros_like(vals)
-    dense[coord_flat] = vals[coord_flat]
-    dense = dense.reshape(g.shape)
-    new_r = corrected - dense
-    return dense, new_r
+    dense = torch.zeros_like(vals[0])
+    dense[coord_flat] = pmean(vals[:, coord_flat])
+    dense = _replicated(dense, n)
+    return dense.reshape(g.shape), (vals - dense).reshape(g.shape)
 
 
 def compress_decompress(
@@ -225,34 +253,70 @@ def compress_decompress(
     state: CompressionState,
 ) -> Tuple[PyTree, CompressionState, Dict[str, torch.Tensor]]:
     """grad -> sketch -> descent top-k -> exact values, with error feedback.
-    Passthrough leaves come back as they are."""
-    _require_local(cfg)
+    Passthrough leaves come back as they are.  With ``cfg.axis_name`` set,
+    ``grads`` and the residuals carry the replicas on a leading axis, the
+    result is the full cross-replica reduction and ``compress_rel_err`` has
+    one entry a replica: the caller must not all-reduce the gradients
+    again.  Without it, the same reduction runs on one replica."""
+    if cfg.axis_name is not None:
+        return _compress_replicas(grads, state)
+
+    def stacked(x):
+        return None if x is None else x[None]
+
+    def first(x):
+        return None if x is None else x[0]
+
+    out, st, metrics = _compress_replicas(
+        tr.map_leaves(stacked, grads),
+        CompressionState(residual=tr.map_leaves(stacked, state.residual),
+                         compressors=state.compressors))
+    return (tr.map_leaves(first, out),
+            CompressionState(residual=tr.map_leaves(first, st.residual),
+                             compressors=state.compressors),
+            {k: v[0] for k, v in metrics.items()})
+
+
+def replicate_state(state: CompressionState, n: int) -> CompressionState:
+    """``state`` for n data-parallel replicas: every residual stacked n
+    times on a leading axis (the compressors' plans, draws and coordinates
+    are shared)."""
+    return CompressionState(
+        residual=tr.map_leaves(
+            lambda r: None if r is None else r.unsqueeze(0).repeat(n, *([1] * r.dim())),
+            state.residual),
+        compressors=state.compressors)
+
+
+def _compress_replicas(grads: PyTree, state: CompressionState):
+    """The compressor over replicas stacked on axis 0: each compressed
+    leaf through :func:`_compress_leaf` (each replica keeps its own
+    residual), passthrough leaves pmean'd."""
     r_leaves = dict(tr.flatten(state.residual))
     c_leaves = dict(tr.flatten(state.compressors))
-
     out_g, out_r = [], []
     sq_err = sq_tot = None
+    n = 1
     for path, g in tr.flatten(grads):
         r, comp = r_leaves[path], c_leaves[path]
+        n = g.shape[0]
         if comp is None:
-            out_g.append((path, g))
+            out_g.append((path, _replicated(pmean(g), n)))
             out_r.append((path, r))
             continue
-        dense, new_r = _compress_leaf(cfg, comp, g, r)
-        err = torch.sum(torch.square(new_r))
-        tot = torch.sum(torch.square(g.to(torch.float32) + r))
+        dense, new_r = _compress_leaf(comp, g, r)
+        err = torch.stack([torch.sum(torch.square(x)) for x in new_r])
+        tot = torch.stack([torch.sum(torch.square(x.to(torch.float32) + y))
+                           for x, y in zip(g, r)])
         sq_err = err if sq_err is None else sq_err + err
         sq_tot = tot if sq_tot is None else sq_tot + tot
         out_g.append((path, dense.to(g.dtype)))
         out_r.append((path, new_r))
-
     if sq_err is None:
-        zero = torch.zeros((), dtype=torch.float32)
-        sq_err = sq_tot = zero
+        sq_err = sq_tot = torch.zeros(n, dtype=torch.float32)
     metrics = {"compress_rel_err": torch.sqrt(sq_err / (sq_tot + 1e-12))}
     return (tr.unflatten(out_g),
-            CompressionState(residual=tr.unflatten(out_r),
-                             compressors=state.compressors),
+            CompressionState(residual=tr.unflatten(out_r), compressors=state.compressors),
             metrics)
 
 

@@ -17,8 +17,11 @@ parameter leaves in the reference's leaf order.
 In place of the reference's jax key, :func:`init_train_state` takes a
 ``torch.Generator``; :func:`train` takes a generator or a ready state
 (e.g. one carried across from the reference with
-``repro_torch.interop.train_state_from_numpy``).  Checkpoint/restart
-(``ckpt_dir``) is not ported yet (ROADMAP item 13).
+``repro_torch.interop.train_state_from_numpy``).  With ``ckpt_dir``,
+:func:`train` restores the newest checkpoint there and runs under
+training/fault_tolerance.Supervisor, saving every ``save_every`` steps
+(training/checkpoint.py's format): a run killed and restarted ends bit
+for bit where an uninterrupted run ends.
 """
 from __future__ import annotations
 
@@ -202,13 +205,15 @@ def train(
     log_every: int = 10,
     device: DeviceLike = None,
 ) -> Tuple[Dict[str, PyTree], Dict[str, list]]:
-    """Single-host training loop.  ``key``: a ``torch.Generator`` for a
-    fresh state on ``device``, or a ready state (which fixes the device).
-    Each step's time ends with a device synchronisation."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "train(ckpt_dir=...): checkpoint/restart is not ported yet "
-            "(ROADMAP item 13, durability)")
+    """Single-host training loop with checkpoint/restart fault tolerance.
+
+    ``key``: a ``torch.Generator`` for a fresh state on ``device``, or a
+    ready state (which fixes the device).  With ``ckpt_dir`` the run starts
+    from the newest complete checkpoint there (step and state) and runs
+    ``num_steps`` more under a :class:`~repro_torch.training.fault_tolerance.Supervisor`
+    that saves every ``save_every`` steps and at the end, and restores and
+    replays on a failed step.  Each step's time ends with a device
+    synchronisation."""
     if isinstance(key, torch.Generator):
         state = init_train_state(cfg, tcfg, key, device)
     else:
@@ -218,15 +223,36 @@ def train(
     data = synthetic_batches(cfg, batch, seq)
     history: Dict[str, list] = {"loss": [], "step_time_s": []}
 
-    for s in range(num_steps):
+    start = 0
+    if ckpt_dir:
+        from repro_torch.training import checkpoint as ckpt
+
+        if ckpt.latest_step(ckpt_dir) is not None:
+            start, restored = ckpt.restore(ckpt_dir, {"state": state})
+            state = restored["state"]
+
+    def one_step(s: int, st):
         t0 = time.perf_counter()
         b = {k: torch.from_numpy(v).to(device) for k, v in data(s).items()}
         if "embeds" in b:
             b["embeds"] = b["embeds"].to(cfg.activation_dtype)
-        state, metrics = step_fn(state, b)
+        st, metrics = step_fn(st, b)
         if s % log_every == 0:
             history["loss"].append(float(metrics["loss"]))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         history["step_time_s"].append(time.perf_counter() - t0)
+        return st
+
+    if ckpt_dir:
+        from repro_torch.training.fault_tolerance import Supervisor
+
+        sup = Supervisor(ckpt_dir, save_every=save_every)
+        _, out = sup.run({"state": state},
+                         lambda s, st: {"state": one_step(s, st["state"])},
+                         start, num_steps)
+        state = out["state"]
+    else:
+        for s in range(num_steps):
+            state = one_step(s, state)
     return state, history

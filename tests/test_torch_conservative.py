@@ -29,6 +29,7 @@ from repro_torch.core import sketch as psk
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import sketch_update_conservative as psc
 from repro_torch.kernels.hashes import make_plan
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serving import sketch_engine as pse
 from repro_torch.streams import zipf_hh_workload
 
@@ -249,8 +250,15 @@ def test_kernel_sketch_conservative_refusals():
     with pytest.raises(ValueError, match="only defined for linear tables"):
         phh.sharded_hierarchy_build(phspec, state, None, ("data",), None, None,
                                     mode="conservative")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        phh.sharded_hierarchy_build(phspec, state, None, ("data",), None, None)
+    # the linear sharded build runs (tests/test_torch_sharded.py holds it
+    # against the reference) and equals the serial fold
+    mesh = Mesh((2,), ("data",), ["cpu", "cpu"])
+    m = phspec.base.schema.modularity
+    items = (np.arange(4 * m, dtype=np.uint32).reshape(4, m) * 37) % 251
+    built = phh.sharded_hierarchy_build(phspec, state, mesh, ("data",), items,
+                                        np.ones(4, np.int32))
+    serial = phh.update(phspec, state, items, np.ones(4, np.int32))
+    assert all(torch.equal(a.table, b.table) for a, b in zip(built.states, serial.states))
 
 
 def test_residency_rule_switch_point():

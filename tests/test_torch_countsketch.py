@@ -37,6 +37,7 @@ from repro_torch.kernels import sketch_query as psq
 from repro_torch.kernels import sketch_update as psu
 from repro_torch.kernels.hashes import all_sign_bits, make_plan, row_sign_bits
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
+from repro_torch.launch.mesh import Mesh
 
 DOMAINS = (1 << 32, 256, 1000, 70_000)
 PARTITION = [(3, 1), (0,), (2,)]          # joint out-of-order group first
@@ -664,16 +665,21 @@ def test_signed_refusals_match_reference():
 
 
 def test_float32_and_sharded_refusals_name_their_items():
-    """The sharded folds refuse naming ROADMAP item 12; conservative mode
-    refuses what the reference's refuses; float32 tables are taken by the
-    folds and refused, with ValueError, by the int32-only reads."""
+    """The sharded folds run in linear and signed mode (tests/
+    test_torch_sharded.py holds them against the reference); conservative
+    mode refuses what the reference's refuses; float32 tables are taken by
+    the folds and refused, with ValueError, by the int32-only reads."""
     rspec, pspec = _specs(3)
     _, pp = _params(rspec, 210)
+    mesh = Mesh((2,), ("data",), ["cpu", "cpu"])
+    m = pspec.schema.modularity
+    items = (np.arange(4 * m, dtype=np.uint32).reshape(4, m) * 37) % 251
     for mode, params in (("signed", pp), ("linear", pp.base)):
         ks = KernelSketch(pspec, params, device="cpu", mode=mode)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            ks.sharded_update(None, ("data",), np.zeros((2, 4), np.uint32),
-                              np.ones(2))
+        ks.sharded_update(mesh, ("data",), items, np.ones(4, np.int32))
+        one = KernelSketch(pspec, params, device="cpu", mode=mode)
+        one.update(items, np.ones(4, np.int32))
+        assert torch.equal(ks.table, one.table)
     # the checks the CUDA wrappers run first (the card tests drive them
     # there): the folds take float32 tables since item 14 (K1f, K3f, K6f,
     # K8f); the reads (K2, K4, K7, K9) take int32 only, as the reference's

@@ -1506,3 +1506,137 @@ def test_decayed_window_descent_launches_k4f_and_equals_plain(cuda):
     assert _cuda.LAUNCHES["hier_update_f32"] > n0["hier_update_f32"]
     assert _cuda.LAUNCHES["hier_query"] == n0["hier_query"]
 
+
+
+# --------------------------------------------------------------------------
+# sharded serving, the sharded flat folds and the data-parallel compressor
+# --------------------------------------------------------------------------
+
+def _mesh(n, device):
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh((n,), ("data",), [device] * n)
+
+
+def test_sharded_service_on_one_card_equals_plain(cuda):
+    """Four shards of a ShardedTopKService on one card, then two after a
+    remesh: each block is one K3 launch a shard, the descent runs K4 on the
+    merged tables, and every table and answer equals the same service on
+    a CPU mesh."""
+    from repro_torch.serving.sharded_topk import ShardedTopKService
+
+    wl = zipf_hh_workload(n_src=300, n_tgt=600, n_edges=3000, n_occurrences=30_000, seed=4)
+    spec = sk.mod_sketch_spec(KeySchema(wl.stream.schema.domains), [(0,), (1,)],
+                              (256, 128), 4)
+    params = _params(hh.HierarchySpec.from_spec(spec).levels[-1], 33, torch.device("cpu"))
+    kw = dict(max_candidates_per_group=4096, sync_every=2)
+    card = ShardedTopKService(spec, params, _mesh(4, cuda), **kw)
+    host = ShardedTopKService(spec, params, _mesh(4, "cpu"), **kw)
+    assert card.use_kernel and not host.use_kernel
+    n0 = dict(_cuda.LAUNCHES)
+    for b, idx in enumerate(np.array_split(np.arange(wl.stream.items.shape[0]), 7)):
+        card.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+        host.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+        if b == 3:
+            card.remesh(_mesh(2, cuda))
+            host.remesh(_mesh(2, "cpu"))
+    assert _cuda.LAUNCHES["hier_update"] - n0["hier_update"] == 4 * 4 + 2 * 3
+    for a, b in zip(card.state().states, host.state().states):
+        assert a.table.is_cuda and _bitwise(a.table.cpu(), b.table)
+    thr = max(1, card.total // 100)
+    for got, want in ((card.heavy_hitters(thr), host.heavy_hitters(thr)),
+                      (card.topk(20), host.topk(20))):
+        assert got[0].shape[0] > 0
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    assert _cuda.LAUNCHES["hier_query"] > n0["hier_query"]
+
+
+def test_sharded_service_moved_onto_the_card_launches_k4(cuda):
+    """A CPU endpoint promoted onto a card mesh, and a CPU service re-meshed
+    onto the card, both with the default ``use_kernel``: after the move
+    each shard folds on K3 and the descent runs on K4, with answers equal
+    to the service that stayed on the CPU."""
+    from repro_torch.serving.sharded_topk import ShardedTopKService
+
+    wl = zipf_hh_workload(n_src=300, n_tgt=600, n_edges=3000, n_occurrences=30_000, seed=4)
+    spec = sk.mod_sketch_spec(KeySchema(wl.stream.schema.domains), [(0,), (1,)],
+                              (256, 128), 4)
+    params = _params(hh.HierarchySpec.from_spec(spec).levels[-1], 33, torch.device("cpu"))
+    blocks = np.array_split(np.arange(wl.stream.items.shape[0]), 6)
+    host = ShardedTopKService(spec, params, _mesh(2, "cpu"), max_candidates_per_group=4096)
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=4096, device="cpu")
+    moved = ShardedTopKService(spec, params, _mesh(2, "cpu"), max_candidates_per_group=4096)
+    for idx in blocks[:3]:
+        for target in (host, ep, moved):
+            target.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+    promoted = ep.to_sharded(_mesh(2, cuda))
+    moved.remesh(_mesh(2, cuda))
+    thr = max(1, wl.stream.freqs.sum() // 100)
+    for svc in (promoted, moved):
+        assert svc.use_kernel and not host.use_kernel
+        n0 = dict(_cuda.LAUNCHES)
+        for idx in blocks[3:]:
+            svc.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+        assert _cuda.LAUNCHES["hier_update"] - n0["hier_update"] == 2 * 3
+        got = (svc.heavy_hitters(thr), svc.topk(20))
+        assert _cuda.LAUNCHES["hier_query"] > n0["hier_query"]
+        if svc is promoted:
+            for idx in blocks[3:]:
+                host.ingest(wl.stream.items[idx], wl.stream.freqs[idx])
+        for a, b in zip(svc.state().states, host.state().states):
+            assert a.table.is_cuda and _bitwise(a.table.cpu(), b.table)
+        for g, want in zip(got, (host.heavy_hitters(thr), host.topk(20))):
+            assert g[0].shape[0] > 0
+            np.testing.assert_array_equal(g[0], want[0])
+            np.testing.assert_array_equal(g[1], want[1])
+
+
+@pytest.mark.parametrize("mode", ["linear", "signed"])
+def test_kernel_sketch_sharded_update_on_card(cuda, mode):
+    """KernelSketch.sharded_update over four shards of one card: one K1 (or
+    K6) launch a shard, the table equal to the CPU mesh's."""
+    spec = sk.mod_sketch_spec(KeySchema((1 << 20, 1 << 20)), [(0,), (1,)], (64, 32), 3)
+    rng = np.random.default_rng(7)
+    items = rng.integers(0, 1 << 20, (1000, 2), dtype=np.int64).astype(np.uint32)
+    freqs = rng.integers(1, 9, 1000).astype(np.int32)
+    if mode == "signed":
+        freqs = freqs * np.where(np.arange(1000) % 3 == 0, -1, 1).astype(np.int32)
+    shapes = ((3, spec.schema.total_chunks), (3, spec.n_groups))
+    params = tuple(draw_hash_params_np(rng, shape)
+                   for shape in shapes * (2 if mode == "signed" else 1))
+    card = KernelSketch(spec, params, device=cuda, mode=mode)
+    host = KernelSketch(spec, params, device="cpu", mode=mode)
+    name = "sketch_update" if mode == "linear" else "sketch_update_signed"
+    n0 = _cuda.LAUNCHES[name]
+    card.sharded_update(_mesh(4, cuda), ("data",), items, freqs)
+    host.sharded_update(_mesh(4, "cpu"), ("data",), items, freqs)
+    assert _cuda.LAUNCHES[name] == n0 + 4
+    assert _bitwise(card.table.cpu(), host.table)
+
+
+def test_dp_compressor_on_card(cuda):
+    """The data-parallel compressor on the card: each replica's tables by
+    one K8f launch, replicas bit-identical, and on integer gradients equal
+    to the same reduction on the CPU."""
+    from repro_torch import tree as tr
+    from repro_torch.training import grad_compression as gc
+
+    local = gc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256)
+    dp = gc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256,
+                              axis_name="dp")
+    rng = np.random.default_rng(0)
+    g = torch.from_numpy(rng.integers(-9, 10, (2, 64, 48)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-9, 10, (2, 8)).astype(np.float32))
+    outs = []
+    for device in ("cpu", cuda):
+        grads = {"w": g.to(device), "b": b.to(device)}
+        state = gc.init_compression(local, tr.map_leaves(lambda x: x[0], grads),
+                                    torch.Generator().manual_seed(0))
+        n0 = _cuda.LAUNCHES["hier_update_signed_f32"]
+        out, st, _ = gc.compress_decompress(dp, grads, gc.replicate_state(state, 2))
+        assert _cuda.LAUNCHES["hier_update_signed_f32"] == n0 + (2 if device == cuda else 0)
+        assert torch.equal(out["w"][0], out["w"][1])
+        outs.append((out["w"].cpu(), st.residual["w"].cpu(), out["b"].cpu()))
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)

@@ -75,6 +75,7 @@ def _entry_points():
     from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
     from repro_torch.serving.sketch_engine import SketchTopKEndpoint
     from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
     from repro_torch.models import transformer as tfm
     from repro_torch.training import train_loop as tl
 
@@ -111,6 +112,8 @@ def _entry_points():
             get_reduced("gemma-7b"), {}),
         "train_state_from_numpy": lambda: interop.train_state_from_numpy(
             get_reduced("gemma-7b"), tl.TrainConfig(), {}),
+        "make_mesh": lambda: make_mesh((2,), ("data",)),
+        "make_test_mesh": lambda: make_test_mesh((2,), ("data",)),
     }
 
 
@@ -121,7 +124,7 @@ def _entry_points():
      "SketchTopKEndpoint_conservative", "KernelSketch_conservative", "choose_sketch",
      "migration_gain", "greedy_config", "exhaustive_config",
      "transformer.init_params", "init_train_state", "train", "model_params_from_numpy",
-     "train_state_from_numpy"]))
+     "train_state_from_numpy", "make_mesh", "make_test_mesh"]))
 def test_entry_points_without_a_card_raise(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

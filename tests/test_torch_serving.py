@@ -238,8 +238,11 @@ def test_unported_surfaces_refuse_by_roadmap_item():
         cons.to_sharded(None)
     with pytest.raises(ValueError, match="mode must be"):
         pse.SketchTopKEndpoint(base, torch.Generator(), mode="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port.to_sharded(None)
+    # promotion to a sharded service is ported (tests/test_torch_sharded.py)
+    from repro_torch.launch.mesh import Mesh
+
+    svc = port.to_sharded(Mesh((2,), ("data",), ["cpu", "cpu"]))
+    assert svc.n_shards == 2 and svc.total == port.total
     # migration and the tuner are ported (tests/test_torch_migration.py):
     # a migration opens, and an engine takes a tuner
     port.begin_migration(base, torch.Generator(), warmup=10)

@@ -37,6 +37,8 @@ from repro_torch import tree as tr
 from repro_torch.core import countsketch as tcs
 from repro_torch.models import transformer as ttfm
 from repro_torch.streams import ngram as tngram
+from repro_torch.training import checkpoint as tckpt
+from repro_torch.training import fault_tolerance as tft
 from repro_torch.training import grad_compression as tgc
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train_loop as ttl
@@ -271,11 +273,86 @@ def test_starcoder2_two_layer_plan():
 
 
 def test_compression_refusals_name_their_items():
-    tcfg = tgc.CompressionConfig(enabled=True, min_size=4, axis_name="dp")
-    grads = {"w": torch.ones((8, 8))}
-    state = tgc.init_compression(tcfg, grads, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tgc.compress_decompress(tcfg, grads, state)
+    """``axis_name`` was refused until the data-parallel compressor was
+    ported; it now runs over replicas stacked on a leading axis, and two
+    identical replicas reproduce the single-device result bit for bit."""
+    one = tgc.CompressionConfig(enabled=True, min_size=4)
+    dp = dataclasses.replace(one, axis_name="dp")
+    rng = np.random.default_rng(3)
+    grads = {"w": _t(rng.integers(-9, 10, (8, 8)).astype(np.float32)),
+             "b": _t(rng.standard_normal(2).astype(np.float32))}
+    state = tgc.init_compression(one, grads, torch.Generator().manual_seed(0))
+    out1, st1, _ = tgc.compress_decompress(one, grads, state)
+    out2, st2, met = tgc.compress_decompress(
+        dp, tr.map_leaves(lambda x: torch.stack([x, x]), grads), tgc.replicate_state(state, 2))
+    for rep in range(2):
+        assert torch.equal(out2["w"][rep], out1["w"])
+        assert torch.equal(st2.residual["w"][rep], st1.residual["w"])
+        assert torch.equal(out2["b"][rep], grads["b"])
+    assert met["compress_rel_err"].shape == (2,)
+
+
+def test_dp_compressor_matches_reference_pmap_leg(tmp_path):
+    """The reference's 2-device ``pmap`` leg (tests/test_training.py's
+    test_compression_dp_tables_allreduce, run in a subprocess on two forced
+    host devices) on integer-valued gradients, where every table, mean and
+    selection is exact: the port's replicas equal it bit for bit, for
+    identical replicas and for replicas fed different gradients."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+
+    code = f"""
+        import jax, jax.numpy as jnp, numpy as np
+        from repro.training import grad_compression as gc
+        cfg1 = gc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256)
+        cfg2 = gc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256,
+                                    axis_name="dp")
+        rng = np.random.default_rng(0)
+        g = rng.integers(-9, 10, (32, 32)).astype(np.float32)
+        b = rng.integers(-9, 10, 8).astype(np.float32)
+        grads = {{"w": jnp.asarray(g), "b": jnp.asarray(b)}}
+        state = gc.init_compression(cfg1, grads, jax.random.PRNGKey(0))
+        out1, st1, _ = gc.compress_decompress(cfg1, grads, state)
+        step = jax.pmap(lambda g, s: gc.compress_decompress(cfg2, g, s), axis_name="dp")
+        s2 = jax.tree.map(lambda x: jnp.stack([x, x]), state)
+        out2, st2, _ = step(jax.tree.map(lambda x: jnp.stack([x, x]), grads), s2)
+        outA, stA, _ = step(jax.tree.map(lambda x: jnp.stack([x, jnp.zeros_like(x)]), grads), s2)
+        c = state.compressors["w"].params
+        np.savez({str(tmp_path / "ref.npz")!r}, g=g, b=b, w1=np.asarray(out1["w"]),
+                 w2=np.asarray(out2["w"]), r2=np.asarray(st2.residual["w"]),
+                 b2=np.asarray(out2["b"]), wA=np.asarray(outA["w"]),
+                 rA=np.asarray(stA.residual["w"]), bA=np.asarray(outA["b"]),
+                 q=np.asarray(c.base.q), r=np.asarray(c.base.r),
+                 sq=np.asarray(c.sign_q), sr=np.asarray(c.sign_r))
+        print("DP OK")
+    """
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    env["JAX_PLATFORMS"] = "cpu"
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0 and "DP OK" in out.stdout, out.stderr[-4000:]
+    ref = np.load(tmp_path / "ref.npz")
+    dp = tgc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256,
+                               axis_name="dp")
+    grads = {"w": _t(ref["g"]), "b": _t(ref["b"])}
+    state = interop.compression_state_from_numpy(
+        dataclasses.replace(dp, axis_name=None), grads,
+        {("w",): (ref["q"], ref["r"], ref["sq"], ref["sr"])})
+    s2 = tgc.replicate_state(state, 2)
+    for lo, (w, r, b) in (("2", ("w2", "r2", "b2")), ("A", ("wA", "rA", "bA"))):
+        second = (lambda x: x) if lo == "2" else torch.zeros_like
+        stacked = tr.map_leaves(lambda x: torch.stack([x, second(x)]), grads)
+        got, st, _ = tgc.compress_decompress(dp, stacked, s2)
+        assert torch.equal(got["w"][0], got["w"][1]), "replicas diverged"
+        np.testing.assert_array_equal(got["w"].numpy(), ref[w])
+        np.testing.assert_array_equal(st.residual["w"].numpy(), ref[r])
+        np.testing.assert_array_equal(got["b"].numpy(), ref[b])
+    np.testing.assert_array_equal(ref["w2"][0], ref["w1"])
 
 
 # --------------------------------------------------------------------------
@@ -397,14 +474,148 @@ def test_synthetic_batches_and_sketch_spec_match_reference():
             (b.schema.domains, b.partition, b.ranges, b.width)
 
 
-def test_training_refusals_name_their_items():
+def test_training_refusals_name_their_items(tmp_path):
+    """``ckpt_dir`` was refused until checkpoint/restart was ported; it now
+    runs (and writes the checkpoint).  The model families of ROADMAP item
+    15 are still refused by name."""
     tc = tconfigs.get_reduced("gemma-7b")
     _, ttcfg = _train_cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        ttl.train(tc, ttcfg, 1, 2, 8, torch.Generator(), ckpt_dir="ck", device="cpu")
+    ttl.train(tc, ttcfg, 1, 2, 8, torch.Generator(), ckpt_dir=str(tmp_path), device="cpu")
+    assert tckpt.latest_step(str(tmp_path)) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         ttl.init_train_state(tconfigs.get_reduced("mixtral-8x22b"), ttcfg,
                              torch.Generator(), "cpu")
+
+
+def _leaves_equal(a, b):
+    fa, fb = tckpt.flatten_with_paths(a), tckpt.flatten_with_paths(b)
+    assert [p for p, _ in fa] == [p for p, _ in fb]
+    for (path, x), (_, y) in zip(fa, fb):
+        assert type(x) is type(y), path
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y), path
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=path)
+
+
+def test_train_ckpt_restart_equals_uninterrupted(tmp_path, monkeypatch):
+    """gemma-7b reduced in bfloat16 with compression (every matrix a
+    compressed leaf) and the bigram sketch: 4 steps uninterrupted, 2 + 2
+    across a restart from the checkpoint, and 4 with a step that fails once
+    and is replayed from the last checkpoint, all end bit for bit alike."""
+    tc = tconfigs.get_reduced("gemma-7b")
+    _, ttcfg = _train_cfgs(optimizer=dict(lr=2e-3), compression=dict(enabled=True,
+                                                                      min_size=1024))
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    whole, _ = ttl.train(tc, ttcfg, 4, 2, 16, gen(), ckpt_dir=str(tmp_path / "a"),
+                         save_every=2, device="cpu")
+    plain, _ = ttl.train(tc, ttcfg, 4, 2, 16, gen(), device="cpu")
+    _leaves_equal(whole, plain)
+    assert any(p.dtype == torch.bfloat16 for p in tr.leaves(whole["params"]))
+    ttl.train(tc, ttcfg, 2, 2, 16, gen(), ckpt_dir=str(tmp_path / "b"), save_every=2,
+              device="cpu")
+    resumed, _ = ttl.train(tc, ttcfg, 2, 2, 16, gen(), ckpt_dir=str(tmp_path / "b"),
+                           save_every=2, device="cpu")
+    assert tckpt.latest_step(str(tmp_path / "b")) == 4
+    _leaves_equal(whole, resumed)
+
+    real = ttl.make_train_step
+    calls = {"n": 0}
+
+    def flaky(cfg, tcfg):
+        step = real(cfg, tcfg)
+
+        def run(state, batch):
+            calls["n"] += 1
+            if calls["n"] == 4:
+                raise RuntimeError("injected device loss")
+            return step(state, batch)
+        return run
+
+    monkeypatch.setattr(ttl, "make_train_step", flaky)
+    failed, _ = ttl.train(tc, ttcfg, 4, 2, 16, gen(), ckpt_dir=str(tmp_path / "c"),
+                          save_every=2, device="cpu")
+    assert calls["n"] == 6          # steps 0-2, the failure, then 2 and 3 again
+    _leaves_equal(whole, failed)
+
+
+def _table_steps():
+    """A step loop whose state is a flat sketch table: step i folds block i
+    (data keyed by the step number, so a replay folds the same blocks)."""
+    from repro_torch.core import sketch as tsk
+    from repro_torch.core.hashing import KeySchema
+    from repro_torch.kernels.ops import KernelSketch
+
+    rng = np.random.default_rng(1)
+    spec = tsk.mod_sketch_spec(KeySchema((100, 200)), [(0,), (1,)], (32, 32), 4)
+    ks = KernelSketch(spec, torch.Generator().manual_seed(0), block_b=64, device="cpu")
+    blocks = [(rng.integers(0, 100, (50, 2)).astype(np.uint32),
+               rng.integers(1, 5, 50).astype(np.int64)) for _ in range(12)]
+
+    def step_fn(i, state):
+        ks.table = state["table"].clone()
+        ks.update(*blocks[i % len(blocks)])
+        return {"table": ks.table, "step_no": np.asarray(i + 1)}
+
+    return step_fn, lambda: {"table": torch.zeros_like(ks.table), "step_no": np.asarray(0)}
+
+
+def test_supervisor_restart_replay_backoff_and_budget(tmp_path):
+    import time
+
+    step_fn, init = _table_steps()
+    _, want = tft.Supervisor(str(tmp_path / "ref"), save_every=3).run(init(), step_fn, 0, 12)
+    boom = {"armed": True}
+
+    def flaky(i, state):
+        if i == 5 and boom["armed"]:
+            boom["armed"] = False
+            raise RuntimeError("injected device loss")
+        return step_fn(i, state)
+
+    sup = tft.Supervisor(str(tmp_path / "ck"), save_every=3)
+    step, got = sup.run(init(), flaky, 0, 12)
+    assert step == 12 and sup.restarts == 1 and int(got["step_no"]) == 12
+    assert torch.equal(got["table"], want["table"])
+
+    def always(i, state):
+        raise RuntimeError("persistent failure")
+
+    sup = tft.Supervisor(str(tmp_path / "bad"), save_every=3, max_restarts=2)
+    with pytest.raises(RuntimeError, match="max_restarts"):
+        sup.run(init(), always, 0, 12)
+    assert sup.restarts == 3
+    left = {"n": 2}
+
+    def twice(i, state):
+        if left["n"]:
+            left["n"] -= 1
+            raise RuntimeError("injected")
+        return step_fn(i, state)
+
+    sup = tft.Supervisor(str(tmp_path / "slow"), save_every=100, max_restarts=3,
+                         restart_backoff=0.05, async_save=False)
+    t0 = time.perf_counter()
+    sup.run(init(), twice, 0, 3)
+    assert time.perf_counter() - t0 >= 0.15 and sup.restarts == 2
+
+
+def test_straggler_monitor_flags_and_recovers():
+    mon = tft.StragglerMonitor(threshold=2.0, ewma=0.5)
+    for step in range(3):
+        mon.record(step, {h: 0.010 for h in range(4)})
+    assert mon.reports[-1].stragglers == []
+    for step in range(3, 8):
+        times = {h: 0.010 for h in range(4)}
+        times[2] = 0.100
+        rep = mon.record(step, times)
+    assert rep.stragglers == [2]
+    for step in range(8, 20):
+        rep = mon.record(step, {h: 0.010 for h in range(4)})
+    assert rep.stragglers == []
 
 
 def test_flatten_keeps_no_leaf_alive():
