@@ -140,7 +140,27 @@ Phases, any failure of which exits non-zero:
    reduced config killed once and restarted, equal to an uninterrupted run
    bit for bit.  Ingest rows/s, sync, query, snapshot, WAL and recovery
    figures printed; the K1, K3, K4, K6 and K8f rows gain ``sharded`` and
-   ``recovery`` entries in ``launches_by_path``.
+   ``recovery`` entries in ``launches_by_path``;
+7. model serving and the launchers, each leg under ``Legs.leg``:
+   mixtral-8x22b at its published width, depth cut to 2 layers (bf16,
+   5.41B params), through ``SlotScheduler`` over ``ServeEngine`` on 8
+   slots: 16 requests of 512 tokens, 32 greedy tokens each, then 2 of
+   4,090 tokens, 16 each, so that decode crosses the 4,096 window; prefill
+   ms, time to first token, decode tokens/s, cache bytes, the prompts' MoE
+   drops and peak memory printed; every served token inside the
+   vocabulary; a float32 copy of the params teacher-forced on the long
+   requests (``prefill`` 4 served tokens past the prompt, 4
+   ``decode_step``s, dropless) equal to ``forward`` within 1e-3 of max
+   |logit|.  ``launch/serve.py`` on whole mamba2-130m and
+   seamless-m4t-medium, with the same check; every family's reduced
+   config on the card against the CPU within 1e-4 of scale;
+   ``launch/train.py`` on whole mamba2-130m with gradient compression
+   (finite losses; K1, K2 and K8f launches counted, the bigram table and
+   probe equal to their plain versions, K8f on a real gradient leaf within
+   2^-10); ``launch/serve.py --sketch-autotune`` (K3, K4 launches counted)
+   equal bit for bit, decisions and answers, to the same run on the plain
+   versions.  The K1, K2, K3, K4 and K8f rows gain a ``model_serving``
+   entry in ``launches_by_path``.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -167,7 +187,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree as tr  # noqa: E402
-from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_reduced  # noqa: E402
 from repro_torch.core import countsketch as cs  # noqa: E402
 from repro_torch.core import window as win  # noqa: E402
 from repro_torch.core.fcm import FCM, fcm_spec, fmod_spec  # noqa: E402
@@ -187,8 +207,13 @@ from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import kv_cache  # noqa: E402
+from repro_torch.serving import model_engine as me  # noqa: E402
 from repro_torch.serving import recovery as rec  # noqa: E402
 from repro_torch.serving.autotune import AutoTuner, seeded_key_draw  # noqa: E402
 from repro_torch.serving.faults import FaultPlan, ServingSupervisor  # noqa: E402
@@ -274,6 +299,27 @@ FIG10_HW = (2048, 6)
 SHARDS = 4
 RECOVERY_SNAPSHOT_EVERY, RECOVERY_CRASH_AFTER = 4, 10
 TRAIN_CKPT_ARCH, TRAIN_CKPT_STEPS, TRAIN_CKPT_FAIL_AT = "starcoder2-7b", 6, 4
+# the model-serving phase: mixtral-8x22b at its published width, depth cut to
+# 2 layers (5.41B params; the 56-layer model's 141B do not fit one card),
+# bf16; 16 requests of 512 tokens on 8 slots, 32 greedy tokens each, then 2
+# of 4,090 tokens, 16 each, so that decode crosses the 4,096 window.  The
+# float32 teacher-forced check prefills TF_DECODE_STEPS served tokens past
+# the prompt and decodes TF_DECODE_STEPS more: |err| <= TF_TOL x max|logit|
+SERVE_ARCH, SERVE_LAYERS = "mixtral-8x22b", 2
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 512, 32
+LONG_REQUESTS, LONG_PROMPT, LONG_NEW = 2, 4090, 16
+TF_DECODE_STEPS, TF_TOL = 4, 1e-3
+# whole models through the serve launcher (seeded frame embeddings for
+# seamless's encoder), and the train launcher on whole mamba2-130m
+SERVE_LAUNCHES = {
+    "mamba2": ["--arch", "mamba2-130m", "--full", "--slots", "8", "--prompt-len", "1024",
+               "--max-new", "64"],
+    "seamless": ["--arch", "seamless-m4t-medium", "--full", "--slots", "8"]}
+TRAIN_LAUNCH = ["--arch", "mamba2-130m", "--full", "--steps", "3", "--batch", "8",
+                "--seq", "1024", "--grad-compression"]
+# every family's reduced config on the card against the CPU, float32:
+# |err| <= FAMILY_TOL x max(1, max|logit|)
+FAMILY_TOL = 1e-4
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -1075,22 +1121,24 @@ def training_path(seed):
     return cfg, tcfg, state, launches, e2e
 
 
-def bigram_chunks(cfg, spec, step: int) -> torch.Tensor:
-    """The chunks of the bigrams K1 folds in the training path's ``step``."""
-    data = tl.synthetic_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)
+def bigram_chunks(cfg, spec, step: int, batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> torch.Tensor:
+    """The chunks of the bigrams K1 folds in a training run's ``step``."""
+    data = tl.synthetic_batches(cfg, batch, seq)
     tokens = torch.from_numpy(data(step)["tokens"]).to(DEVICE)
     return spec.schema.module_chunks(tl.ngram.ngram_items(tokens, cfg.sketch_ngrams))
 
 
-def plain_bigram_table(cfg, state) -> torch.Tensor:
-    """The training phase's n-gram table rebuilt by K1's plain version on a
-    zero [w, h] table: the same steps' batches, bigrams and (q, r), freqs 1."""
+def plain_bigram_table(cfg, state, steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+                       seq: int = TRAIN_SEQ) -> torch.Tensor:
+    """A training run's n-gram table rebuilt by K1's plain version on a zero
+    [w, h] table: the same steps' batches, bigrams and (q, r), freqs 1."""
     spec = tl.make_sketch_spec(cfg)
     plan = tl.make_plan(spec)
     q, r = state["sketch_params"]
     table = torch.zeros_like(state["sketch_table"])
-    for step in range(TRAIN_STEPS):
-        chunks = bigram_chunks(cfg, spec, step)
+    for step in range(steps):
+        chunks = bigram_chunks(cfg, spec, step, batch, seq)
         freqs = torch.ones((chunks.shape[0],), dtype=table.dtype, device=table.device)
         su.sketch_update_ref(plan, table, chunks, freqs, q, r)
     return table
@@ -2639,8 +2687,9 @@ def training_profile(seed):
 
 # the kernels the two phases launch, and the path each one's row named its
 # launches under before (rows without ``launches_by_path``)
-PHASE_KERNELS = {"sketch_update": None, "hier_update": None, "hier_query": None,
-                 "sketch_update_signed": "turnstile", "hier_update_signed_f32": "training"}
+PHASE_KERNELS = {"sketch_update": None, "sketch_query": None, "hier_update": None,
+                 "hier_query": None, "sketch_update_signed": "turnstile",
+                 "hier_update_signed_f32": "training"}
 
 
 def card_mesh(n: int) -> Mesh:
@@ -3021,6 +3070,337 @@ def recovery_path(spec, params, stream, thr, main, sd4, seed):
     return launches, e2e
 
 
+# --------------------------------------------------------------------------
+# phase 7: model serving, and the serve and train launchers
+# --------------------------------------------------------------------------
+
+class MoEDrops:
+    """Records every MoE layer's ``dropped_frac`` while installed, split into
+    prompt calls (more than one position a sequence) and decode calls."""
+
+    def __init__(self):
+        self.prompt, self.decode = [], []
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = moe_mod.apply_moe
+
+        def recording(cfg, p, x, *args, **kwargs):
+            out, aux = self._orig(cfg, p, x, *args, **kwargs)
+            (self.prompt if x.shape[1] > 1 else self.decode).append(
+                aux["dropped_frac"].detach())
+            return out, aux
+
+        moe_mod.apply_moe = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.apply_moe = self._orig
+
+    def prompt_mean(self) -> float:
+        return float(torch.stack(self.prompt).mean()) if self.prompt else 0.0
+
+
+def float32_copy(cfg, params):
+    """The same parameters in float32, under a float32 config."""
+    return (dataclasses.replace(cfg, dtype="float32"),
+            tr.map_leaves(lambda x: x.to(torch.float32), params))
+
+
+@torch.no_grad()
+def teacher_forced_err(cfg, params, tokens: torch.Tensor, n_prompt: int,
+                       embeds=None) -> dict:
+    """``prefill`` of ``tokens[:, :n_prompt]`` and one ``decode_step`` for
+    each later token, against ``forward``'s logits at the same positions
+    over all of ``tokens``: the largest error over the largest |logit|."""
+    n_prefix = cfg.frontend_len if cfg.frontend and not cfg.n_enc_layers else 0
+    v = cfg.vocab_size
+    full, aux = tfm.forward(cfg, params, tokens, embeds=embeds)
+    last, cache = tfm.prefill(cfg, params, tokens[:, :n_prompt], embeds=embeds,
+                              max_len=n_prefix + tokens.shape[1])
+    got = [last[:, :v]]
+    for t in range(n_prompt, tokens.shape[1]):
+        lg, cache = tfm.decode_step(cfg, params, cache, tokens[:, t : t + 1], n_prefix + t)
+        got.append(lg[:, 0, :v])
+    want = full[:, n_prefix + n_prompt - 1 : n_prefix + tokens.shape[1], :v]
+    err = max_abs_err(torch.stack(got, dim=1), want)
+    scale = float(want.abs().max())
+    return {"max_abs_err": err, "max_abs_logit": scale, "err_over_scale": err / scale,
+            "positions": [n_prefix + n_prompt - 1, n_prefix + tokens.shape[1] - 1],
+            "forward_dropped_frac": float(aux["dropped_frac"])}
+
+
+def served_tokens(requests, vocab: int) -> torch.Tensor:
+    """Each request's prompt and served tokens, [n, prompt + new]."""
+    rows = [np.concatenate([r.prompt, np.asarray(r.out, np.int64)]) for r in requests]
+    check(all(0 <= t < vocab for r in requests for t in r.out),
+          f"every served token lies in [0, {vocab})")
+    return torch.from_numpy(np.stack(rows).astype(np.int64)).to(DEVICE)
+
+
+def serve_traffic(engine, n_requests: int, prompt_len: int, max_new: int, rng) -> dict:
+    """``n_requests`` random prompts through a ``SlotScheduler`` of
+    SERVE_SLOTS slots over ``engine``: prefill and decode split by CUDA
+    events, the prompts' MoE drops, a cohort's cache bytes; then the time to
+    a first token on the host, ``generate(prompts, 1)`` of the first
+    cohort."""
+    sched = me.SlotScheduler(engine, SERVE_SLOTS)
+    for rid in range(n_requests):
+        sched.submit(me.Request(rid=rid, max_new=max_new, prompt=rng.integers(
+            0, engine.cfg.vocab_size, (prompt_len,)).astype(np.int64)))
+    with Timed(tfm, "prefill") as pre, Timed(tfm, "decode_step") as dec, MoEDrops() as drops:
+        done, secs = wall(sched.run)
+    prefill_ms = [a.elapsed_time(b) for a, b in pre.events]
+    decode_ms = [a.elapsed_time(b) for a, b in dec.events]
+    first = np.stack([r.prompt for r in done[:SERVE_SLOTS]])
+    _, ttft = wall(lambda: engine.generate(first, 1))
+    n_cohorts = -(-n_requests // SERVE_SLOTS)
+    tokens = sum(len(r.out) for r in done)
+    decode_tokens = tokens - n_requests
+    return {"requests": done, "e2e": {
+        "requests": n_requests, "slots": SERVE_SLOTS, "prompt_len": prompt_len,
+        "max_new": max_new, "cohorts": n_cohorts, "served_tokens": tokens,
+        "wall_s": secs, "served_tokens_per_s": tokens / secs,
+        "prefill_ms": prefill_ms, "time_to_first_token_ms": ttft * 1e3,
+        "decode_steps": len(decode_ms), "decode_step_ms_mean": float(np.mean(decode_ms)),
+        "decode_tokens_per_s": decode_tokens / (sum(decode_ms) / 1e3),
+        "cache_bytes": kv_cache.cache_bytes(kv_cache.new_cache(
+            engine.cfg, min(n_requests, SERVE_SLOTS), engine.scfg.max_len, "meta")),
+        "prefill_dropped_frac": drops.prompt_mean(),
+        "decode_dropped_frac": float(torch.stack(drops.decode).sum()) if drops.decode else 0.0}}
+
+
+def mixtral_serving(seed: int) -> dict:
+    """mixtral-8x22b at its published width, 2 layers, bf16, through
+    ``SlotScheduler`` over ``ServeEngine``: 16 requests of 512 tokens on 8
+    slots, 32 greedy tokens each, then 2 of 4,090 tokens, 16 each (decode
+    crosses the 4,096 window).  Then a float32 copy of the same params
+    teacher-forced on the 2 long requests' prompts and served tokens,
+    dropless."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params, t_init = wall(lambda: tfm.init_params(cfg, gen, DEVICE))
+    n_params = tfm.param_count(params)
+    rng = np.random.default_rng((seed, 24))
+    short = serve_traffic(me.ServeEngine(cfg, params, me.ServeConfig(
+        max_len=SERVE_PROMPT + SERVE_NEW + 8)), SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, rng)
+    long = serve_traffic(me.ServeEngine(cfg, params, me.ServeConfig(
+        max_len=LONG_PROMPT + LONG_NEW + 8)), LONG_REQUESTS, LONG_PROMPT, LONG_NEW, rng)
+    peak = torch.cuda.max_memory_allocated()
+    served_tokens(short["requests"], cfg.vocab_size)
+    tokens = served_tokens(long["requests"], cfg.vocab_size)
+    check(LONG_PROMPT + LONG_NEW > cfg.sliding_window,
+          "the long requests' decode crosses the sliding window")
+    # the check: prefill 4 served tokens past the prompt, then 4 decode
+    # steps, so the positions cross the window (4,093 .. 4,097).  It runs
+    # dropless (capacity_factor E / k: an expert holds every token): the
+    # capacity follows the token count, so forward, prefill and decode drop
+    # different routes, and a drop moves every later position by attention
+    torch.cuda.reset_peak_memory_stats()
+    cfg32, params32 = float32_copy(cfg, params)
+    cfg32 = dataclasses.replace(cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    del params
+    torch.cuda.empty_cache()
+    n_prompt = LONG_PROMPT + TF_DECODE_STEPS
+    tf = teacher_forced_err(cfg32, params32, tokens[:, : n_prompt + TF_DECODE_STEPS], n_prompt)
+    tf["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params32
+    torch.cuda.empty_cache()
+    check(tf["forward_dropped_frac"] == 0.0, "the teacher-forced forward drops no token")
+    check(tf["positions"][0] < cfg.sliding_window <= tf["positions"][1],
+          "the teacher-forced positions cross the 4,096 window")
+    check(tf["err_over_scale"] <= TF_TOL,
+          f"{SERVE_ARCH}: float32 prefill and decode equal forward's logits within "
+          f"{TF_TOL} x max|logit| ({tf['err_over_scale']})")
+    e2e = {"arch": SERVE_ARCH, "layers": SERVE_LAYERS, "d_model": cfg.d_model,
+           "params": n_params, "init_s": t_init, "dtype": cfg.dtype,
+           "short": short["e2e"], "long": long["e2e"], "peak_memory_gb": peak / 1e9,
+           "teacher_forced": tf}
+    log(f"model serving ({SERVE_ARCH}, {SERVE_LAYERS} layers, {n_params} params): "
+        f"{json.dumps(e2e)}")
+    return e2e
+
+
+def launcher_serving(argv, n_check: int = 2) -> dict:
+    """``launch/serve.py`` on a whole model, then its params' float32 copy
+    teacher-forced on ``n_check`` requests: ``prefill`` of the prompt and
+    4 served tokens, then 4 ``decode_step``s (:func:`teacher_forced_err`)."""
+    out = serve_launcher.main(argv)
+    cfg, reqs = out["cfg"], out["requests"][:n_check]
+    tokens = served_tokens(out["requests"], cfg.vocab_size)[:n_check]
+    embeds = None
+    if cfg.frontend:
+        embeds = torch.from_numpy(np.stack([r.embeds for r in reqs])).to(DEVICE)
+    n_prompt = len(reqs[0].prompt)
+    check(all(len(r.out) >= TF_DECODE_STEPS + 1 for r in reqs), "enough served tokens")
+    cfg32, params32 = float32_copy(cfg, out["params"])
+    del out["params"]
+    tf = teacher_forced_err(cfg32, params32, tokens[:, : n_prompt + TF_DECODE_STEPS],
+                            n_prompt, embeds)
+    check(tf["err_over_scale"] <= TF_TOL,
+          f"{cfg.name}: float32 prefill and decode equal forward's logits within "
+          f"{TF_TOL} x max|logit| ({tf['err_over_scale']})")
+    e2e = {"argv": argv, "arch": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers, "params": tfm.param_count(params32),
+           "requests": len(out["requests"]), "served_tokens": out["tokens"],
+           "wall_s": out["seconds"], "served_tokens_per_s": out["tokens"] / out["seconds"],
+           "teacher_forced": tf}
+    del params32
+    torch.cuda.empty_cache()
+    log(f"serve launcher {' '.join(argv)}: {json.dumps(e2e)}")
+    return e2e
+
+
+@torch.no_grad()
+def families_on_card(seed: int) -> dict:
+    """Each architecture's reduced config in float32, the same params on the
+    card and the CPU: ``forward``, then ``prefill`` and 2 ``decode_step``s,
+    within FAMILY_TOL of the logits' scale."""
+    out = {}
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        host = tfm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        card = tr.map_leaves(lambda x: x.to(DEVICE), host)
+        rng = np.random.default_rng((seed, len(out)))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 14)))
+        emb = None
+        if cfg.frontend:
+            emb = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_len, cfg.d_model)).astype(np.float32) * 0.02)
+        n_prefix = cfg.frontend_len if cfg.frontend and not cfg.n_enc_layers else 0
+        runs = []
+        for params, dev in ((host, "cpu"), (card, DEVICE)):
+            e = None if emb is None else emb.to(dev)
+            full, _ = tfm.forward(cfg, params, tok.to(dev), embeds=e)
+            last, cache = tfm.prefill(cfg, params, tok[:, :12].to(dev), embeds=e,
+                                      max_len=n_prefix + 16)
+            steps = [last]
+            for t in (12, 13):
+                lg, cache = tfm.decode_step(cfg, params, cache, tok[:, t : t + 1].to(dev),
+                                            n_prefix + t)
+                steps.append(lg[:, 0])
+            runs.append([full] + steps)
+        errs = [max_abs_err(c.cpu(), h) / max(1.0, float(h.abs().max()))
+                for h, c in zip(*runs)]
+        check(max(errs) <= FAMILY_TOL, f"{arch}: forward, prefill and decode on the card "
+              f"equal the CPU's within {FAMILY_TOL} x scale ({max(errs)})")
+        out[arch] = {"family": cfg.family, "err_over_scale": errs}
+    log(f"every family on the card against the CPU: {json.dumps(out)}")
+    return out
+
+
+def train_launcher_path(argv, legs: Legs) -> dict:
+    """``launch/train.py`` on whole mamba2-130m with gradient compression:
+    finite losses; K1 once a step, K2 once (the bigram probe), K8f once a
+    compressed leaf a step; the bigram table equal to K1's plain fold and
+    the probe to K2's plain version; K8f on one real gradient leaf against
+    its plain version within REAL_GRAD_TOL."""
+    torch.cuda.reset_peak_memory_stats()
+    with legs.leg("train_launcher"):
+        out = train_launcher.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    launches = legs.by_leg["train_launcher"]
+    cfg, state, hist = out["cfg"], out["state"], out["history"]
+    steps, batch, seq = out["args"].steps, out["args"].batch, out["args"].seq
+    comps = [(path, c) for path, c in tr.flatten(state["compression"].compressors)
+             if c is not None]
+    check(np.isfinite(hist["loss"]).all(), f"the train launcher's losses are finite "
+          f"({hist['loss']})")
+    check(launches["sketch_update"] == steps, "K1 folded each step's bigrams once")
+    check(launches["sketch_query"] == 1, "K2 answered the bigram probe in one launch")
+    check(launches["hier_update_signed_f32"] == len(comps) * steps > 0,
+          f"K8f folded each of the {len(comps)} compressed leaves once a step")
+    check(torch.equal(state["sketch_table"], plain_bigram_table(cfg, state, steps, batch, seq)),
+          "the train launcher's bigram table equals K1's plain fold of the same batches")
+    spec = tl.make_sketch_spec(cfg)
+    probe = bigram_chunks(cfg, spec, 0, batch, seq)[:8]
+    check(torch.equal(out["estimates"], sq.sketch_query_ref(
+        tl.make_plan(spec), state["sketch_table"], probe, *state["sketch_params"])),
+        "the bigram probe equals K2's plain version")
+    # one more gradient at the trained params; K8f on the largest leaf
+    tokens = torch.from_numpy(tl.synthetic_batches(cfg, batch, seq)(steps)["tokens"]).to(DEVICE)
+    pairs = tr.flatten(state["params"])
+    path, comp = max(comps, key=lambda pc: math.prod(pc[1].plan.shape))
+    leaf = next(p for pth, p in pairs if pth == path).detach().requires_grad_(True)
+    live = tr.unflatten([(pth, leaf if pth == path else p) for pth, p in pairs])
+    (grad,) = torch.autograd.grad(tfm.loss_fn(cfg, live, tokens)[0], [leaf])
+    corrected = grad.to(torch.float32) + dict(tr.flatten(state["compression"].residual))[path]
+    ratio = k8f_real_gradient(comp, corrected.reshape(-1))
+    check(ratio <= REAL_GRAD_TOL, f"K8f within {REAL_GRAD_TOL} of sum |v| per cell of its "
+          f"plain version on the real gradient of {'/'.join(path)} ({ratio})")
+    e2e = {"argv": argv, "arch": cfg.name, "params": tfm.param_count(state["params"]),
+           "losses": hist["loss"], "step_time_s": hist["step_time_s"],
+           "tokens_per_s": steps * batch * seq / sum(hist["step_time_s"]),
+           "compressed_leaves": len(comps), "peak_memory_gb": peak / 1e9,
+           "k8f_leaf": "/".join(path), "k8f_err_over_abs_sum": ratio,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"train launcher: {json.dumps(e2e)}")
+    return e2e
+
+
+def autotune_launcher_path(legs: Legs) -> dict:
+    """``launch/serve.py --sketch-autotune`` at its defaults, then the same
+    run with the plain versions (``use_kernel=False``): the same decisions,
+    the migrated endpoints' tables bit for bit and their answers equal."""
+    with legs.leg("sketch_autotune"):
+        out = serve_launcher.main(["--sketch-autotune"])
+    launches = legs.by_leg["sketch_autotune"]
+    check(launches["hier_update"] > 0 and launches["hier_query"] > 0,
+          "K3 and K4 launched under the auto-tuner")
+    plain = serve_launcher.run_sketch_autotune(
+        serve_launcher.parse_args(["--sketch-autotune"]), use_kernel=False)
+    ep, twin = out["endpoint"], plain["endpoint"]
+    check([dataclasses.asdict(d) for d in out["tuner"].decisions]
+          == [dataclasses.asdict(d) for d in plain["tuner"].decisions],
+          "the kernel and plain runs take the same tuning decisions")
+    sd_k, sd_p = ep.state_dict(), twin.state_dict()
+    check(sd_k.keys() == sd_p.keys() and all(np.array_equal(sd_k[k], sd_p[k]) for k in sd_k),
+          "the migrated endpoint equals the plain run's bit for bit")
+    thr = max(1, ep.total // 500)
+    for what, a, b in (("topk", ep.topk(32), twin.topk(32)),
+                       ("heavy_hitters", ep.heavy_hitters(thr), twin.heavy_hitters(thr))):
+        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+              f"the migrated endpoint's {what} equals the plain run's")
+    e2e = {"migrations": sum(d.migrated for d in out["tuner"].decisions),
+           "ranges": list(ep.hspec.base.ranges), "are": out["are"],
+           "seconds": out["seconds"], "plain_seconds": plain["seconds"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"sketch auto-tune launcher: {json.dumps(e2e)}")
+    return e2e
+
+
+def model_serving_path(seed: int):
+    """Phase 7: mixtral-8x22b served at full width; the serve launcher on
+    whole mamba2-130m and seamless-m4t-medium; every family on the card
+    against the CPU; the train launcher on whole mamba2-130m; the serve
+    launcher's auto-tune mode.  Returns (launches, e2e)."""
+    legs = Legs()
+    e2e = {}
+    t = time.perf_counter()
+    with legs.leg("serve_mixtral"):
+        e2e["mixtral"] = mixtral_serving(seed)
+    e2e["mixtral"]["phase_s"] = time.perf_counter() - t
+    for name, argv in SERVE_LAUNCHES.items():
+        t = time.perf_counter()
+        with legs.leg(f"serve_{name}"):
+            e2e[name] = launcher_serving(argv)
+        e2e[name]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with legs.leg("families"):
+        e2e["families"] = families_on_card(seed)
+    e2e["families_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    e2e["train_launcher"] = train_launcher_path(TRAIN_LAUNCH, legs)
+    e2e["train_launcher"]["phase_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    e2e["sketch_autotune"] = autotune_launcher_path(legs)
+    e2e["sketch_autotune"]["phase_s"] = time.perf_counter() - t
+    e2e["launches_by_leg"] = legs.nonzero()
+    return legs.total(), e2e
+
+
 def add_phase_launches(rows, by_phase: dict) -> None:
     """Each phase kernel's row gains its launches in each of ``by_phase``'s
     paths under ``launches_by_path``; ``launches`` stays their sum."""
@@ -3198,7 +3578,15 @@ def main(argv=None) -> int:
         lambda: recovery_path(spec, params, stream, thr, main_host, sd4, args.seed))
     e2e["sharded"]["phase_s"], e2e["recovery"]["phase_s"] = t_sh, t_rec
     log(f"sharded phase {t_sh:.1f} s, recovery phase {t_rec:.1f} s")
-    add_phase_launches(kr.rows, {"sharded": sh_launches, "recovery": rec_launches})
+    del main_host, sd4
+    torch.cuda.empty_cache()
+
+    # phase 7: model serving and the launchers
+    (ms_launches, e2e["model_serving"]), t_ms = wall(lambda: model_serving_path(args.seed))
+    e2e["model_serving"]["phase_s"] = t_ms
+    log(f"model-serving phase {t_ms:.1f} s")
+    add_phase_launches(kr.rows, {"sharded": sh_launches, "recovery": rec_launches,
+                                 "model_serving": ms_launches})
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ reference's own ``state_dict()`` output verbatim, and their
 ``state_dict()`` loads back into the reference.
 
 Training state crosses the same way: the reference's param tree as numpy
-(stacked blocks included, bfloat16 bit for bit), the n-gram sketch's
+(stacked blocks included, bfloat16 bit for bit; every family's), a decode
+cache the same way, the n-gram sketch's
 ``(q, r)`` and each compressed leaf's ``(q, r, sign_q, sign_r)`` keyed by
 the leaf's path in the tree.
 
@@ -171,6 +172,15 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any],
                              f"{want[path].dtype}")
         out.append((path, t))
     return tr.unflatten(out)
+
+
+def cache_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """A reference decode cache (``init_cache``'s or ``prefill``'s stacked
+    tree, as numpy) as the port's: each leaf its own tensor, which
+    ``decode_step`` then writes in place."""
+    device = resolve_device(device)
+    return tr.unflatten((path, tensor_from_numpy(leaf, device))
+                        for path, leaf in tr.flatten(tree))
 
 
 def compression_state_from_numpy(ccfg, params: Mapping[str, Any],

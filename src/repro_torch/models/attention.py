@@ -1,5 +1,6 @@
-"""GQA/MQA self-attention for training: full, sliding-window and blockwise
-(long sequences), PyTorch port of ``repro/models/attention.py``.
+"""GQA/MQA attention: full, sliding-window, blockwise (long sequences),
+cross attention and single-token decode against a KV cache, PyTorch port
+of ``repro/models/attention.py``.
 
 The reference computes attention with plain jnp einsums and a softmax (no
 Pallas kernel), so the port does the same with ``torch.einsum``: logits in
@@ -9,13 +10,15 @@ in place of ``lax.scan``) so the [B, H, S, S] logits never exist at once;
 it is numerically identical to the dense path and switches on above
 ``cfg.attn_chunk_threshold``.
 
-Cross attention and decode against a KV cache wait for the model-serving
-slice (ROADMAP item 15).
+Decode writes the new token's K/V into the cache *in place* (the
+reference returns an updated copy): a cache tensor is the one the caller
+passed, changed.  A position at or past the cache's length writes its last
+slot, as ``lax.dynamic_update_slice`` clamps the reference's write.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -40,16 +43,19 @@ def make_attn_params(cfg: ModelConfig, generator: torch.Generator, device,
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor):
-    b, s = x.shape[0], x.shape[1]
+def _project_qkv(cfg: ModelConfig, p, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
+    b = x.shape[0]
     hd = cfg.resolved_head_dim
+    kv_src = x if kv_x is None else kv_x
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, cfg.n_heads, hd), k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+    return (q.reshape(b, x.shape[1], cfg.n_heads, hd),
+            k.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd),
+            v.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd))
 
 
 def _expand_kv(cfg: ModelConfig, k: torch.Tensor) -> torch.Tensor:
@@ -91,12 +97,19 @@ def self_attention(
     window: int,
     causal: bool = True,
 ) -> torch.Tensor:
+    return _self_attention_kv(cfg, p, x, positions, window, causal)[0]
+
+
+def _self_attention_kv(cfg: ModelConfig, p, x, positions, window: int,
+                       causal: bool = True):
+    """Self attention -> (out [B, S, D], the rotated K [B, S, n_kv, hd],
+    V): the prompt's K/V are what ``prefill`` caches."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k_heads, v_heads = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    k = _expand_kv(cfg, k)
-    v = _expand_kv(cfg, v)
+    k_heads = apply_rope(k_heads, positions, cfg.rope_theta)
+    k = _expand_kv(cfg, k_heads)
+    v = _expand_kv(cfg, v_heads)
 
     if causal and s > cfg.attn_chunk_threshold:
         out = _blockwise_causal(cfg, q, k, v, window)
@@ -109,7 +122,7 @@ def self_attention(
     out = out.reshape(b, s, -1) @ p["wo"]
     if "bo" in p:
         out = out + p["bo"]
-    return out
+    return out, k_heads, v_heads
 
 
 def _blockwise_causal(cfg: ModelConfig, q, k, v, window: int) -> torch.Tensor:
@@ -123,3 +136,79 @@ def _blockwise_causal(cfg: ModelConfig, q, k, v, window: int) -> torch.Tensor:
         mask = _causal_mask(cq, s, ci * cq, window, q.device)      # [1,1,Cq,S]
         chunks.append(_attend(cfg, q[:, ci * cq : (ci + 1) * cq], k, v, mask))
     return torch.cat(chunks, dim=1)
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,             # [B, Sq, D] decoder states
+    enc: torch.Tensor,           # [B, Sk, D] encoder output
+) -> torch.Tensor:
+    q, k, v = _project_qkv(cfg, p, x, kv_x=enc)
+    return _cross_attend(cfg, p, q, k, v)
+
+
+def _cross_attend(cfg: ModelConfig, p, q, k, v) -> torch.Tensor:
+    """Unmasked attention of q [B, Sq, H, hd] over the encoder's K/V
+    [B, Sk, n_kv, hd], through the out projection."""
+    b, sq = q.shape[:2]
+    k = _expand_kv(cfg, k)
+    v = _expand_kv(cfg, v)
+    mask = torch.ones((1, 1, sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    out = _attend(cfg, q, k, v, mask).reshape(b, sq, -1) @ p["wo"]
+    if "bo" in p:
+        out = out + p["bo"]
+    return out
+
+
+# --------------------------------------------------------------------------
+# decode (single new token against a KV cache)
+# --------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  device, lead=()) -> Dict[str, torch.Tensor]:
+    """Zero K/V of shape ``lead + (batch, max_len, n_kv_heads, head_dim)``;
+    ``lead`` is the stacked-block axis, each block its own memory."""
+    shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dt = cfg.activation_dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_self_attention(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    cache: Dict[str, torch.Tensor],
+    x: torch.Tensor,               # [B, 1, D] the new token's hidden state
+    pos: Union[int, torch.Tensor],  # position of the new token (whole batch)
+    window: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token's attention; writes its K/V into ``cache`` in place and
+    returns ``(out [B, 1, D], cache)``."""
+    b = x.shape[0]
+    pos = int(pos)
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    _scatter_time(cache["k"], k_new, pos)
+    _scatter_time(cache["v"], v_new, pos)
+    k = _expand_kv(cfg, cache["k"])
+    v = _expand_kv(cfg, cache["v"])
+    kpos = torch.arange(k.shape[1], device=x.device)[None, None, None, :]
+    mask = kpos <= pos
+    if window:
+        mask = mask & (kpos > pos - window)
+    out = _attend(cfg, q, k, v, mask).reshape(b, 1, -1) @ p["wo"]
+    if "bo" in p:
+        out = out + p["bo"]
+    return out, cache
+
+
+def _scatter_time(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """Write the [B, 1, ...] slice at time ``pos`` in place.  As
+    ``lax.dynamic_update_slice`` places it: a negative ``pos`` counts from
+    the end, and the start is then clamped into the cache."""
+    t = int(pos) + (cache.shape[1] if int(pos) < 0 else 0)
+    t = min(max(t, 0), cache.shape[1] - 1)
+    cache[:, t : t + 1] = new.to(cache.dtype)

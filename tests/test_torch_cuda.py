@@ -26,10 +26,14 @@ windows start unaligned; the flat point queries (K2, K7, K7m)
 for w = 1-9 with keys' chunks in registers and not, at one lane a query
 and one a row, on tables holding INT_MAX, INT_MIN and zeros.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree as tr
+from repro_torch.configs import ARCHS, get_reduced
 from repro_torch.core import countsketch as cs
 from repro_torch.core import hierarchy as hh
 from repro_torch.core import sketch as sk
@@ -42,6 +46,8 @@ from repro_torch.kernels import sketch_update as su
 from repro_torch.kernels import sketch_update_conservative as scu
 from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch
+from repro_torch.models import moe
+from repro_torch.models import transformer as tfm
 from repro_torch.serving.sketch_engine import SketchServeEngine, SketchTopKEndpoint
 from repro_torch.streams import zipf_hh_workload
 
@@ -1619,7 +1625,6 @@ def test_dp_compressor_on_card(cuda):
     """The data-parallel compressor on the card: each replica's tables by
     one K8f launch, replicas bit-identical, and on integer gradients equal
     to the same reduction on the CPU."""
-    from repro_torch import tree as tr
     from repro_torch.training import grad_compression as gc
 
     local = gc.CompressionConfig(enabled=True, width=5, ratio=4.0, min_size=256)
@@ -1640,3 +1645,63 @@ def test_dp_compressor_on_card(cuda):
         outs.append((out["w"].cpu(), st.residual["w"].cpu(), out["b"].cpu()))
     for a, b_ in zip(*outs):
         assert torch.equal(a, b_)
+
+
+# --------------------------------------------------------------------------
+# the model stack on the card (plain PyTorch, no kernel): against the CPU
+# --------------------------------------------------------------------------
+
+def _card_close(got, want):
+    """The card sums in other orders (cuBLAS tiles, float atomics in the
+    MoE combine): within 1e-4 of the output's scale."""
+    want = want.cpu().to(torch.float32).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.cpu().to(torch.float32).numpy(), want,
+                               rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_on_the_card_equal_cpu(cuda, arch):
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    host = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tr.map_leaves(lambda x: x.to(cuda), host)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 14)))
+    emb = None
+    if cfg.frontend:
+        emb = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)).astype(np.float32) * 0.02)
+    n_prefix = cfg.frontend_len if cfg.frontend and not cfg.n_enc_layers else 0
+    outs = []
+    for params, dev in ((host, "cpu"), (card, cuda)):
+        e = None if emb is None else emb.to(dev)
+        full, _ = tfm.forward(cfg, params, tok.to(dev), embeds=e)
+        last, cache = tfm.prefill(cfg, params, tok[:, :12].to(dev), embeds=e,
+                                  max_len=n_prefix + 16)
+        steps = [last]
+        for t in (12, 13):
+            lg, cache = tfm.decode_step(cfg, params, cache, tok[:, t : t + 1].to(dev),
+                                        n_prefix + t)
+            steps.append(lg[:, 0])
+        outs.append((full, steps))
+    (full_h, steps_h), (full_c, steps_c) = outs
+    _card_close(full_c, full_h)
+    for a, b in zip(steps_c, steps_h):
+        _card_close(a, b)
+
+
+@pytest.mark.parametrize("t", [1024, 4096])
+def test_apply_moe_on_the_card_equals_cpu(cuda, t):
+    """Dropless (T*k = 2,048) and capacity-dropping (T*k = 8,192) dispatch:
+    the same experts chosen and dropped, outputs within tolerance."""
+    cfg = dataclasses.replace(get_reduced("mixtral-8x22b"), dtype="float32",
+                              capacity_factor=1.0)
+    host = moe.make_moe_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (2, t // 2, cfg.d_model)).astype(np.float32))
+    want, waux = moe.apply_moe(cfg, host, x)
+    got, gaux = moe.apply_moe(cfg, {k: v.to(cuda) for k, v in host.items()}, x.to(cuda))
+    assert torch.equal(gaux["expert_choice"].cpu(), waux["expert_choice"])
+    assert float(gaux["dropped_frac"]) == float(waux["dropped_frac"])
+    assert (float(waux["dropped_frac"]) > 0) == (t * cfg.top_k > 4096)
+    _card_close(got, want)

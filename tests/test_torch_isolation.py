@@ -77,6 +77,7 @@ def _entry_points():
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import make_mesh, make_test_mesh
     from repro_torch.models import transformer as tfm
+    from repro_torch.serving import kv_cache
     from repro_torch.training import train_loop as tl
 
     spec = sk.mod_sketch_spec(KeySchema((256, 256)), [(0,), (1,)], (8, 8), 2)
@@ -112,6 +113,13 @@ def _entry_points():
             get_reduced("gemma-7b"), {}),
         "train_state_from_numpy": lambda: interop.train_state_from_numpy(
             get_reduced("gemma-7b"), tl.TrainConfig(), {}),
+        "transformer.init_params_moe": lambda: tfm.init_params(
+            get_reduced("mixtral-8x22b"), gen),
+        "transformer.init_cache": lambda: tfm.init_cache(get_reduced("mamba2-130m"), 1, 8),
+        "kv_cache.new_cache": lambda: kv_cache.new_cache(
+            get_reduced("seamless-m4t-medium"), 1, 8),
+        "cache_from_numpy": lambda: interop.cache_from_numpy(
+            {"layer_0": {"k": np.zeros((1, 1, 2, 1, 4), np.float32)}}),
         "make_mesh": lambda: make_mesh((2,), ("data",)),
         "make_test_mesh": lambda: make_test_mesh((2,), ("data",)),
     }
@@ -124,7 +132,9 @@ def _entry_points():
      "SketchTopKEndpoint_conservative", "KernelSketch_conservative", "choose_sketch",
      "migration_gain", "greedy_config", "exhaustive_config",
      "transformer.init_params", "init_train_state", "train", "model_params_from_numpy",
-     "train_state_from_numpy", "make_mesh", "make_test_mesh"]))
+     "train_state_from_numpy", "make_mesh", "make_test_mesh",
+     "transformer.init_params_moe", "transformer.init_cache", "kv_cache.new_cache",
+     "cache_from_numpy"]))
 def test_entry_points_without_a_card_raise(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

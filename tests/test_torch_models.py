@@ -1,5 +1,5 @@
-"""The port's model stack (configs, layers, attention, the dense/vlm
-transformer) against the JAX reference, on the CPU.
+"""The port's model stack (configs, layers, attention, the transformer of
+every family) against the JAX reference, on the CPU.
 
 Weights are the reference's own init, carried across as numpy by
 ``repro_torch.interop.model_params_from_numpy``; inputs come from numpy
@@ -29,9 +29,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
 
-PORTED = [a for a in rconfigs.ARCHS
-          if rconfigs.get_config(a).family in ("dense", "vlm")]
-REFUSED = [a for a in rconfigs.ARCHS if a not in PORTED]
+PORTED = list(rconfigs.ARCHS)
 
 
 def _configs(arch, dtype="float32", **kw):
@@ -43,10 +41,16 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _f32_close(got, want):
+def _f32_close(got, want, layers=2):
+    """float32 parity; ``layers``: the stack's depth.  The reduced configs
+    have 2 layers; the reduced jamba has 8 (a whole hybrid period), and its
+    atol grows with depth (1e-6 x scale a pair of layers): each layer adds
+    its own last-bit differences (exp, silu, the SSD scan's cumsum, which
+    XLA adds in sequence and torch in double)."""
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5,
-                               atol=1e-6 * max(1.0, float(np.abs(want).max())))
+                               atol=1e-6 * max(1.0, layers / 2)
+                               * max(1.0, float(np.abs(want).max())))
 
 
 def _bf16_close(got, want, rtol=2e-2):
@@ -169,8 +173,8 @@ def test_forward_and_loss_match_reference_float32(arch):
     rc, tc, p, tp, tok, r_emb, t_emb = _model_case(arch, "float32")
     want, _ = rtfm.forward(rc, p, jnp.asarray(tok), embeds=r_emb)
     got, aux = ttfm.forward(tc, tp, _t(tok), embeds=t_emb)
-    _f32_close(got.numpy(), want)
-    assert float(aux["lb_loss"]) == 0.0
+    _f32_close(got.numpy(), want, tc.n_layers)
+    assert (float(aux["lb_loss"]) > 0.0) == bool(tc.n_experts)
     rloss, rmet = rtfm.loss_fn(rc, p, jnp.asarray(tok), embeds=r_emb)
     tloss, tmet = ttfm.loss_fn(tc, tp, _t(tok), embeds=t_emb)
     _f32_close(float(tloss), float(rloss))
@@ -179,7 +183,8 @@ def test_forward_and_loss_match_reference_float32(arch):
         _f32_close(float(tmet[k]), float(rmet[k]))
 
 
-@pytest.mark.parametrize("arch", ["gemma-7b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["gemma-7b", "starcoder2-7b", "mixtral-8x22b",
+                                  "mamba2-130m"])
 def test_forward_and_loss_match_reference_bfloat16(arch):
     rc, tc, p, tp, tok, r_emb, t_emb = _model_case(arch, "bfloat16")
     want, _ = rtfm.forward(rc, p, jnp.asarray(tok), embeds=r_emb)
@@ -209,15 +214,6 @@ def test_chunked_loss_matches_reference_and_full_loss(loss_chunk):
         ttfm.loss_fn(dataclasses.replace(tc, loss_chunk=0), live, _t(tok))[0],
         [live["lm_head"]])
     np.testing.assert_allclose(g_head.numpy(), g_full.numpy(), rtol=1e-5, atol=1e-7)
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_unported_families_refuse_naming_item_15(arch):
-    tc = tconfigs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        ttfm.init_params(tc, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        ttfm.forward(tc, {}, torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_init_params_from_a_generator():

@@ -244,8 +244,9 @@ def test_compression_tables_on_gaussian_gradients():
 
 
 @pytest.mark.parametrize("cfg_kw", [{}, dict(width=5, ratio=8.0, beta_rows_cols=4.0)])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", rconfigs.ARCHS)
 def test_leaf_plans_and_ratio_match_reference_at_full_size(arch, cfg_kw):
+    """Every leaf's plan, the MoE experts' [n_blocks, E, d, f] included."""
     rcfg = rgc.CompressionConfig(enabled=True, **cfg_kw)
     tcfg = tgc.CompressionConfig(enabled=True, **cfg_kw)
     want = jax.eval_shape(lambda: rtfm.init_params(rconfigs.get_config(arch),
@@ -408,6 +409,36 @@ def test_train_step_float32_matches_reference(microbatches):
     assert int(tstate["opt"]["step"]) == 0
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-130m"])
+def test_train_step_float32_matches_reference_moe_and_ssm(arch):
+    """One step of the MoE and SSM families with the n-gram sketch and
+    gradient compression on: loss, lb_loss and every updated param and
+    moment (the experts' leaves compressed by shape)."""
+    rc = dataclasses.replace(rconfigs.get_reduced(arch), dtype="float32")
+    tc = dataclasses.replace(tconfigs.get_reduced(arch), dtype="float32")
+    rtcfg, ttcfg = _train_cfgs(optimizer=dict(lr=1e-3, warmup_steps=0, eps=1e-3),
+                               compression=dict(enabled=True, min_size=4096))
+    rstate, tstate = _train_states(rc, tc, rtcfg, ttcfg)
+    batch = rtl.synthetic_batches(rc, 4, 24)(0)
+    rnew, rmet = jax.jit(rtl.make_train_step(rc, rtcfg))(
+        rstate, {"tokens": jnp.asarray(batch["tokens"])})
+    tnew, tmet = ttl.make_train_step(tc, ttcfg)(tstate, {"tokens": _t(batch["tokens"])})
+    assert sorted(tmet) == sorted(rmet)
+    assert (float(tmet["lb_loss"]) > 0) == bool(tc.n_experts)
+    for k in ("loss", "ce", "lb_loss", "dropped_frac", "grad_norm"):
+        _f32_close(float(tmet[k]), float(rmet[k]))
+    comps = [p for p, c in tr.flatten(tstate["compression"].compressors) if c is not None]
+    if tc.n_experts:
+        assert ("blocks", "layer_0", "moe", "w_in") in comps
+    for tree in ("params", "m"):
+        got = tnew["params"] if tree == "params" else tnew["opt"]["m"]
+        want = rnew["params"] if tree == "params" else rnew["opt"]["m"]
+        for (path, g), w in zip(tr.flatten(got), jax.tree.leaves(want)):
+            _f32_close(g.numpy(), w)
+    np.testing.assert_array_equal(tnew["sketch_table"].numpy(),
+                                  np.asarray(rnew["sketch_table"]))
+
+
 def test_microbatching_matches_single_batch():
     tc = dataclasses.replace(tconfigs.get_reduced("starcoder2-7b"), dtype="float32")
     _, base = _train_cfgs(optimizer=dict(lr=0.0, clip_norm=1e9, weight_decay=0.0),
@@ -477,14 +508,14 @@ def test_synthetic_batches_and_sketch_spec_match_reference():
 def test_training_refusals_name_their_items(tmp_path):
     """``ckpt_dir`` was refused until checkpoint/restart was ported; it now
     runs (and writes the checkpoint).  The model families of ROADMAP item
-    15 are still refused by name."""
+    15 were refused until they were ported; they now initialise too."""
     tc = tconfigs.get_reduced("gemma-7b")
     _, ttcfg = _train_cfgs()
     ttl.train(tc, ttcfg, 1, 2, 8, torch.Generator(), ckpt_dir=str(tmp_path), device="cpu")
     assert tckpt.latest_step(str(tmp_path)) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        ttl.init_train_state(tconfigs.get_reduced("mixtral-8x22b"), ttcfg,
-                             torch.Generator(), "cpu")
+    state = ttl.init_train_state(tconfigs.get_reduced("mixtral-8x22b"), ttcfg,
+                                 torch.Generator(), "cpu")
+    assert state["params"]["blocks"]["layer_0"]["moe"]["w_in"].shape == (2, 4, 64, 128)
 
 
 def _leaves_equal(a, b):
