@@ -160,7 +160,23 @@ Phases, any failure of which exits non-zero:
    2^-10); ``launch/serve.py --sketch-autotune`` (K3, K4 launches counted)
    equal bit for bit, decisions and answers, to the same run on the plain
    versions.  The K1, K2, K3, K4 and K8f rows gain a ``model_serving``
-   entry in ``launches_by_path``.
+   entry in ``launches_by_path``;
+8. mesh and dry-run: one MoE layer of mixtral-8x22b at its published width
+   (float32, capacity factor E/k: dropless on every path) on 8 x 512
+   prompt tokens through ``moe_dispatch`` ``ep_shardmap`` and ``local``
+   under ``activation_sharding`` of a (2, 2) (data, model) mesh on the one
+   card, each equal to the global dispatch within 1e-4 of max |y|, no
+   token dropped, each dispatch's prefill ms printed; the dry-run's bytes
+   for mesh position 0 of mixtral-8x22b (2 layers, params and a 552-token
+   cache for 8 slots) against ``torch.cuda.memory_allocated`` as exactly
+   those shards are made on the card, in a fresh process (at most 512 B a
+   leaf above the prediction; the bytes asked of the allocator equal to
+   it); two dry-run cells of each family kind on both production
+   meshes (GB a position, fits, bottleneck); and the main path profiled
+   once more and read by ``trace_analysis`` from the events and from the
+   exported chrome trace, which must give the profile helpers' kernel
+   totals and busy share.  No kernel of the port runs there but the main
+   path's, and no row's launches change.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -186,6 +202,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import roofline as rl  # noqa: E402
+from repro_torch import trace_analysis as ta  # noqa: E402
 from repro_torch import tree as tr  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_reduced  # noqa: E402
 from repro_torch.core import countsketch as cs  # noqa: E402
@@ -207,10 +225,13 @@ from repro_torch.kernels import sketch_update as su  # noqa: E402
 from repro_torch.kernels import sketch_update_conservative as scu  # noqa: E402
 from repro_torch.kernels.hashes import all_indices, all_sign_bits, make_plan  # noqa: E402
 from repro_torch.kernels.ops import KernelHierarchy, KernelSketch  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import shard_ctx  # noqa: E402
+from repro_torch.models import sharding as shd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import kv_cache  # noqa: E402
 from repro_torch.serving import model_engine as me  # noqa: E402
@@ -242,11 +263,11 @@ from repro_torch.training import grad_compression as gc  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
 from repro_torch.training import train_loop as tl  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, and
+# H100 SXM published peaks (repro_torch/roofline.py): HBM bytes/s, and
 # the non-tensor 32-bit ALU rate, used for the kernels' integer and float
 # operations
-MEM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+MEM_BYTES_PER_S = rl.HBM_BW
+ALU_OPS_PER_S = rl.INT_OPS
 
 DEVICE = "cuda"
 BLOCK = 1 << 16
@@ -320,6 +341,22 @@ TRAIN_LAUNCH = ["--arch", "mamba2-130m", "--full", "--steps", "3", "--batch", "8
 # every family's reduced config on the card against the CPU, float32:
 # |err| <= FAMILY_TOL x max(1, max|logit|)
 FAMILY_TOL = 1e-4
+# phase 8: one MoE layer of SERVE_ARCH at its published width, float32 and
+# dropless (capacity factor E/k), on MESH_BATCH x MESH_SEQ prompt tokens
+# under a (2, 2) (data, model) mesh: ep_shardmap and local against the
+# global dispatch within MESH_TOL x max|y| (F-slices and the card's atomic
+# combine reorder float sums; about 1e-5 is expected); the dry-run's bytes
+# for position 0 of SERVE_ARCH at SERVE_LAYERS layers with a DRYRUN_CACHE
+# token cache for DRYRUN_SLOTS slots against the card's allocation of those
+# shards (at most 512 B a leaf above: the caching allocator's rounding);
+# two dry-run cells of each family kind on both production meshes
+MESH_BATCH, MESH_SEQ, MESH_TOL = 8, 512, 1e-4
+DRYRUN_SLOTS, DRYRUN_CACHE, ALLOC_ROUND = 8, 552, 512
+DRYRUN_CELLS = (("starcoder2-7b", "train_4k"), ("starcoder2-7b", "decode_32k"),
+                ("mixtral-8x22b", "train_4k"), ("mixtral-8x22b", "prefill_32k"),
+                ("mamba2-130m", "train_4k"), ("mamba2-130m", "long_500k"),
+                ("jamba-1.5-large-398b", "prefill_32k"), ("jamba-1.5-large-398b", "long_500k"),
+                ("seamless-m4t-medium", "train_4k"), ("seamless-m4t-medium", "decode_32k"))
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -397,17 +434,21 @@ def cold_ms(fn, reps: int, evict) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def device_kernels(fn):
-    """Run ``fn`` under torch.profiler; returns (result, host seconds,
-    [(kernel name, device microseconds)] for every kernel it ran)."""
-    from torch.autograd import DeviceType
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; returns (result, host seconds, the
+    profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out, secs = wall(fn)
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
-    return out, secs, kernels
+    return out, secs, prof
+
+
+def device_kernels(fn):
+    """Run ``fn`` under torch.profiler; returns (result, host seconds,
+    [(kernel name, device microseconds)] for every kernel it ran)."""
+    out, secs, prof = profiled(fn)
+    return out, secs, [(op.name, op.dur_us) for op in ta.read(prof).device]
 
 
 def kernel_device_ms(fn, kernel: str, reps: int, evict):
@@ -2603,22 +2644,26 @@ def f32_kernel_rows(kr, hspec, stream, turnstile, f_flat, f_hier, f_signed, leav
     kr.rows.append(row)
 
 
-def busy_share(run) -> dict:
-    """Run ``run`` under torch.profiler: the device's busy and idle share of
-    its wall time, the share of the busy time in sorting kernels, and the
-    kernels that take the device time."""
-    _, secs, kernels = device_kernels(run)
-    busy = sum(us for _, us in kernels) / 1e6
-    by_name = {}
-    for name, us in kernels:
-        tot, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + us, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    sort = sum(us for name, us in kernels if "sort" in name.lower()) / 1e6
-    return {"wall_s": secs, "device_busy_s": busy,
-            "idle_share": 1 - busy / secs if secs else None,
+def trace_share(summary: dict) -> dict:
+    """A trace summary (``trace_analysis.summarize``) as the profiles
+    report it: the device's busy and idle share of the wall time, the share
+    of the busy time in sorting kernels, and the kernels (and copies) that
+    take the device time."""
+    busy = summary["device_busy_s"]
+    sort = sum(ms for name, (ms, _) in summary["by_name"].items()
+               if "sort" in name.lower()) / 1e3
+    return {"wall_s": summary["wall_s"], "device_busy_s": busy,
+            "idle_share": summary["idle_share"],
             "sort_s": sort, "sort_share_of_busy": sort / busy if busy else None,
-            "top_kernels": [[name[:80], tot / 1e3, n] for name, (tot, n) in top]}
+            "top_kernels": [[name[:80], ms, n] for name, (ms, n)
+                            in list(summary["by_name"].items())[:6]]}
+
+
+def busy_share(run) -> dict:
+    """Run ``run`` under torch.profiler and read the trace
+    (:func:`trace_share`)."""
+    _, secs, prof = profiled(run)
+    return trace_share(ta.summarize(ta.read(prof), wall_s=secs))
 
 
 def device_profile(spec, params, stream, thr):
@@ -3401,6 +3446,207 @@ def model_serving_path(seed: int):
     return legs.total(), e2e
 
 
+# --------------------------------------------------------------------------
+# phase 8: MoE's mesh dispatches, the dry-run and the trace reader
+# --------------------------------------------------------------------------
+
+def moe_mesh_dispatch(seed: int) -> dict:
+    """One MoE layer of SERVE_ARCH at its published width, float32 at
+    capacity factor E/k (dropless on every path), on MESH_BATCH x MESH_SEQ
+    tokens: ``ep_shardmap`` and ``local`` under ``activation_sharding`` of a
+    (2, 2) mesh (every position on this card, the F-slices views) against
+    the global dispatch; each dispatch's prefill ms by CUDA events."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32")
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = {k: v.to(torch.float32) for k, v in moe_mod.make_moe_params(
+        get_config(SERVE_ARCH), gen, DEVICE).items()}
+    x = torch.randn((MESH_BATCH, MESH_SEQ, cfg.d_model), generator=gen, device=DEVICE)
+    mesh = make_test_mesh((2, 2))
+    check(all(d == torch.device(DEVICE, 0) for d in mesh.devices), "the (2, 2) mesh on this card")
+    out, ys = {"mesh": [str(d) for d in mesh.devices], "tokens": MESH_BATCH * MESH_SEQ}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode, path in (("global", "_dispatch"), ("local", "_grouped_dispatch"),
+                       ("ep_shardmap", "_shardmap_dispatch")):
+        c = dataclasses.replace(cfg, moe_dispatch=mode)
+        ctx = contextlib.nullcontext if mode == "global" else (
+            lambda: shard_ctx.activation_sharding(mesh))
+        with ctx(), timed_calls(moe_mod, path, []) as calls:
+            y, aux = moe_mod.apply_moe(c, p, x)
+        check(len(calls) >= 1, f"moe_dispatch={mode} ran {path}")
+        with ctx():
+            ms = cuda_ms(lambda: moe_mod.apply_moe(c, p, x), 2)
+        ys[mode] = y
+        out[mode] = {"prefill_ms": ms, "dropped_frac": float(aux["dropped_frac"]),
+                     "lb_loss": float(aux["lb_loss"]),
+                     "expert_choice_shape": list(aux["expert_choice"].shape)}
+        check(out[mode]["dropped_frac"] == 0.0, f"moe_dispatch={mode} drops no token")
+    scale = float(ys["global"].abs().max())
+    for mode in ("local", "ep_shardmap"):
+        err = max_abs_err(ys[mode], ys["global"]) / scale
+        out[mode]["err_over_scale"] = err
+        check(err <= MESH_TOL, f"moe_dispatch={mode} on the (2, 2) mesh equals the global "
+              f"dispatch within {MESH_TOL} x max|y| ({err})")
+    out["max_abs_y"] = scale
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"MoE mesh dispatches ({SERVE_ARCH}, one layer, float32): {json.dumps(out)}")
+    return out
+
+
+def dryrun_allocation(seed: int) -> dict:
+    """The dry-run's bytes for position 0 of SERVE_ARCH (SERVE_LAYERS
+    layers) on the (2, 2) mesh -- params and a DRYRUN_CACHE-token cache for
+    DRYRUN_SLOTS slots -- against ``torch.cuda.memory_allocated`` as exactly
+    those shards are made on the card (``sharding.shard`` onto a mesh whose
+    other positions are meta), and against the bytes the allocator was
+    asked for, which must equal the prediction.  Run it in a fresh process
+    (:func:`dryrun_allocation_fresh`): the caching allocator hands out a
+    whole cached block when less than 1 MB of it would be left over, so
+    blocks freed by earlier phases would add up to 1 MB an allocation."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    mesh = make_test_mesh((2, 2))
+    pred, _, _ = dryrun.state_bytes(cfg, "decode", DRYRUN_SLOTS, DRYRUN_CACHE, mesh)
+    predicted = pred["params"] + pred["cache"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = tfm.init_params(cfg, gen, DEVICE)
+    cache = tfm.init_cache(cfg, DRYRUN_SLOTS, DRYRUN_CACHE, device=DEVICE)
+    first = Mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                 [DEVICE] + ["meta"] * (mesh.size - 1))
+    trees = ((shd.param_specs(cfg, params, mesh), params),
+             (shd.cache_specs(cfg, cache, mesh, DRYRUN_SLOTS), cache))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    held = []
+    for specs, tree in trees:
+        spec_of = dict(tr.flatten(specs))
+        held += [shd.shard(t, spec_of[path], first)[0] for path, t in tr.flatten(tree)]
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+    out = {"arch": SERVE_ARCH, "layers": SERVE_LAYERS, "slots": DRYRUN_SLOTS,
+           "cache_len": DRYRUN_CACHE, "predicted_bytes": predicted,
+           "predicted_by_part": pred, "allocated_bytes": delta, "requested_bytes": asked,
+           "leaves": len(held),
+           "whole_bytes": sum(t.numel() * t.element_size() for _, tree in trees
+                              for _, t in tr.flatten(tree))}
+    check(all(t.device.type == "cuda" for t in held), "position 0's shards on the card")
+    check(asked == predicted, f"the allocator was asked for the predicted bytes ({asked} B, "
+          f"predicted {predicted} B)")
+    check(predicted <= delta <= predicted + ALLOC_ROUND * len(held),
+          f"the card's allocation of position 0's shards ({delta} B) lies within "
+          f"[{predicted}, {predicted} + {ALLOC_ROUND} x {len(held)}] B")
+    log(f"dry-run bytes against the card's allocation: {json.dumps(out)}")
+    del params, cache, held, trees
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_allocation_fresh(seed: int) -> dict:
+    """:func:`dryrun_allocation` in a new process on the card (its own
+    caching allocator, no blocks left by earlier phases)."""
+    root = str(Path(__file__).resolve().parent)
+    code = (f"import json, sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"print(json.dumps(chip_smoke.dryrun_allocation({seed})))")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=root, timeout=600)
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(run.returncode == 0 and bool(lines),
+          f"the dry-run's allocation check in a fresh process: {run.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def dryrun_cells() -> dict:
+    """DRYRUN_CELLS on both production meshes (meta positions, no card
+    work): GB a position, fits, bottleneck, seconds."""
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        for multi in (False, True):
+            res, secs = wall(lambda: dryrun.lower_cell(arch, shape, multi))
+            out[f"{arch}/{shape}/{dryrun.mesh_name(multi)}"] = {
+                "gb_per_position": res["per_position_bytes"]["total"] / 1e9,
+                "fits": res["fits"], "bottleneck": res["bottleneck"],
+                "t_compute_s": res["t_compute_s"], "t_memory_s": res["t_memory_s"],
+                "t_collective_s": res["t_collective_s"], "s": secs}
+    log(f"dry-run cells: {json.dumps(out)}")
+    return out
+
+
+def trace_reader_check(spec, params, stream, thr) -> dict:
+    """One profiled run of the main path, read three ways: the profile
+    helpers' formula before ``trace_analysis`` (every CUDA event's duration
+    from ``prof.events()``), ``trace_analysis`` on the events, and on the
+    exported chrome trace.  The first two must give the same kernel totals
+    and busy share; the chrome trace the same kernels and launches, and
+    their device time within 0.1%."""
+    from torch.autograd import DeviceType
+
+    ep = SketchTopKEndpoint(spec, params, max_candidates_per_group=POOL,
+                            use_update_kernel=True, use_kernel=True)
+    eng = SketchServeEngine(ep, max_staleness=0)
+
+    def run():
+        ingest_stream(eng, stream.items, stream.freqs)
+        eng.heavy_hitters(thr)
+        eng.topk(100)
+
+    _, secs, prof = profiled(run)
+    legacy = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for name, us in legacy:
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += us / 1e3
+        tot[1] += 1
+    busy = sum(us for _, us in legacy) / 1e6
+    got = ta.summarize(ta.read(prof.events()), wall_s=secs)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        js = ta.summarize(ta.read(path), wall_s=secs)
+    finally:
+        os.remove(path)
+    check(abs(got["device_busy_s"] - busy) <= 1e-9 * busy and got["idle_share"] is not None
+          and abs(got["idle_share"] - (1 - busy / secs)) <= 1e-9,
+          "trace_analysis gives the profile helpers' busy share")
+    check(got["by_name"].keys() == by_name.keys() and all(
+        got["by_name"][k][1] == n and abs(got["by_name"][k][0] - ms) <= 1e-9 * ms
+        for k, (ms, n) in by_name.items()), "trace_analysis gives the helpers' kernel totals")
+    check({k: v[1] for k, v in js["kernels"].items()} ==
+          {k: v[1] for k, v in got["kernels"].items()},
+          "the chrome trace holds the same kernels and launches")
+    k_ev = sum(v[0] for v in got["kernels"].values())
+    k_js = sum(v[0] for v in js["kernels"].values())
+    check(abs(k_js - k_ev) <= 1e-3 * k_ev, f"the chrome trace's kernel time ({k_js} ms) "
+          f"equals the events' ({k_ev} ms) within 0.1%")
+    out = {"wall_s": secs, "device_busy_s": busy, "idle_share": got["idle_share"],
+           "chrome_busy_s": js["device_busy_s"], "busy_union_s": got["device_busy_union_s"],
+           "launches": got["launches"], "kernel_ms": k_ev, "chrome_kernel_ms": k_js,
+           "top_kernels": [[k[:80], *v] for k, v in list(got["kernels"].items())[:4]],
+           "longest_gaps": js["longest_gaps"], "memcpy": js["memcpy"],
+           "collectives": js["collectives"]["count"]}
+    log(f"trace reader on the main path: {json.dumps(out)}")
+    return out
+
+
+def mesh_dryrun_path(seed: int, spec, params, stream, thr) -> dict:
+    """Phase 8: MoE's mesh dispatches, the dry-run against a real
+    allocation, the dry-run's cells, the trace reader's own check."""
+    e2e = {}
+    for name, fn in (("moe_mesh", lambda: moe_mesh_dispatch(seed)),
+                     ("dryrun_allocation", lambda: dryrun_allocation_fresh(seed)),
+                     ("dryrun_cells", dryrun_cells),
+                     ("trace_reader", lambda: trace_reader_check(spec, params, stream, thr))):
+        e2e[name], secs = wall(fn)
+        e2e[name + "_s"] = secs
+        torch.cuda.empty_cache()
+    return e2e
+
+
 def add_phase_launches(rows, by_phase: dict) -> None:
     """Each phase kernel's row gains its launches in each of ``by_phase``'s
     paths under ``launches_by_path``; ``launches`` stays their sum."""
@@ -3585,6 +3831,12 @@ def main(argv=None) -> int:
     (ms_launches, e2e["model_serving"]), t_ms = wall(lambda: model_serving_path(args.seed))
     e2e["model_serving"]["phase_s"] = t_ms
     log(f"model-serving phase {t_ms:.1f} s")
+
+    # phase 8: mesh and dry-run
+    e2e["mesh_dryrun"], t_md = wall(lambda: mesh_dryrun_path(args.seed, spec, params, stream,
+                                                             thr))
+    e2e["mesh_dryrun"]["phase_s"] = t_md
+    log(f"mesh and dry-run phase {t_md:.1f} s ({card})")
     add_phase_launches(kr.rows, {"sharded": sh_launches, "recovery": rec_launches,
                                  "model_serving": ms_launches})
     log("e2e " + json.dumps(e2e))

@@ -72,7 +72,8 @@ class ModelConfig:
     attn_chunk_threshold: int = 8192 # use blockwise attention above this seq len
     sub_quadratic: bool = False      # can run long_500k decode
     loss_chunk: int = 0              # chunked cross-entropy (tokens/chunk; 0=off)
-    moe_dispatch: str = "global"     # global | local (per-DP-shard capacity)
+    moe_dispatch: str = "global"     # global | local (per-DP-shard capacity) |
+                                     # ep_shardmap (per-position F-slices)
     moe_weight_shard: str = "2d"     # 2d (D x dp, F x mp) | f_allaxes (F x dp*mp)
     vocab_pad_multiple: int = 1      # pad embedding rows so vocab shards on TP
     # --- sketch integration (the paper's feature, on by default) ---

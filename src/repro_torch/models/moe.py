@@ -16,21 +16,33 @@ exact on any device; the combine adds each token's k weighted outputs with
 ``index_add_``, which runs in slot order on the CPU and by float atomics in
 any order on the card.
 
-Without a device mesh the reference runs every ``moe_dispatch`` mode on the
-global dispatch (``_shardmap_dispatch`` and the mesh-derived group count
-need a mesh), and so does the port.  ``apply_moe(groups=G)`` runs the
-per-group capacity dispatch of ``_grouped_dispatch`` with the group count
-given.
+``cfg.moe_dispatch`` picks the dispatch under a mesh context
+(``models/shard_ctx.activation_sharding``), as in the reference:
+
+  * ``global`` -- one capacity over all T tokens;
+  * ``local`` -- per-group capacity (:func:`_grouped_dispatch`), one group
+    per data position (:func:`_dispatch_groups`); the groups run one after
+    another on the tokens' device;
+  * ``ep_shardmap`` -- :func:`_shardmap_dispatch`: each (data, model)
+    position of the single-controller mesh routes its data shard's tokens
+    on its own device, computes its F-slice of every expert, and the
+    partial outputs are summed over ``model`` in position order.
+
+Outside a context every mode takes the global dispatch, as the reference
+does.  ``apply_moe(groups=G)`` runs the per-group dispatch with G given,
+in or out of a context.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import psum
+from repro_torch.models import shard_ctx
 from repro_torch.models.layers import _normal, dense_init
 
 
@@ -112,16 +124,36 @@ def _lb_loss(cfg: ModelConfig, gates: torch.Tensor, experts: torch.Tensor) -> to
     return cfg.n_experts * torch.sum(me * ce)
 
 
+def _dispatch_groups(cfg: ModelConfig, t: int) -> int:
+    """Dispatch groups for ``moe_dispatch="local"``: one per data position
+    of the active mesh (the product of its non-``model`` axes), halved
+    until it divides ``t``; 1 without a context or in another mode."""
+    if cfg.moe_dispatch != "local":
+        return 1
+    mesh = shard_ctx.current_mesh()
+    if mesh is None:
+        return 1
+    g = math.prod(n for a, n in mesh.shape.items() if a != "model")
+    while g > 1 and t % g:
+        g //= 2
+    return max(1, g)
+
+
 def apply_moe(
     cfg: ModelConfig,
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,            # [B, S, D]
-    groups: int = 1,
+    groups: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The MoE FFN -> (out [B, S, D], aux): ``lb_loss``, ``dropped_frac``
-    and ``expert_choice`` ([T, k])."""
+    and ``expert_choice`` ([T, k]; ``(1, k)`` zeros from ``ep_shardmap``).
+    ``groups`` overrides the group count of :func:`_dispatch_groups`."""
     b, s, d = x.shape
     t = b * s
+    if groups is None:
+        if cfg.moe_dispatch == "ep_shardmap" and shard_ctx.current_mesh() is not None:
+            return _shardmap_dispatch(cfg, p, x)
+        groups = _dispatch_groups(cfg, t)
     xt = x.reshape(t, d)
     gates, weights, experts = _route(cfg, p, xt)
     if groups > 1:
@@ -149,3 +181,57 @@ def _grouped_dispatch(cfg: ModelConfig, p, xg, eg, wg):
         kept.append(torch.mean(keep.to(torch.float32)))
     return (torch.cat(outs, dim=0),
             {"dropped_frac": 1.0 - torch.mean(torch.stack(kept))})
+
+
+# --------------------------------------------------------------------------
+# expert dispatch on the single-controller mesh (moe_dispatch="ep_shardmap")
+# --------------------------------------------------------------------------
+
+def _shardmap_dispatch(cfg: ModelConfig, p, x: torch.Tensor):
+    """The reference's ``shard_map`` expert compute on the port's mesh.
+
+    The batch is split over the data positions (row-major over the data
+    axes).  Each (data, model) position, on its own device, routes its
+    data shard's tokens with the per-shard capacity, dispatches them,
+    computes its F-slice of every expert (``w_gate``/``w_in`` ``[E, D,
+    F/M]``, ``w_out`` ``[E, F/M, D]``, views of the whole weights) and
+    combines.  The model positions' partial outputs are summed in position
+    order (``core/distributed.psum``, the reference's ``psum`` over
+    ``model``) and the data shards concatenated in order on the mesh's
+    first device.  ``lb_loss`` and ``dropped_frac`` are the mean over the
+    data shards of each shard's value (the reference's ``pmean``)."""
+    mesh = shard_ctx.current_mesh()
+    b, s, d = x.shape
+    n_model = mesh.shape["model"]
+    n_data = mesh.size // n_model
+    f = p["w_in"].shape[-1]
+    if b % n_data or f % n_model:
+        raise ValueError(f"batch {b} over {n_data} data positions, d_ff {f} over "
+                         f"{n_model} model positions: both must divide")
+    bl, fl = b // n_data, f // n_model
+    tl = bl * s
+    cap = capacity(cfg, tl)
+    partials = [[None] * n_model for _ in range(n_data)]
+    lb, kept = [None] * n_data, [None] * n_data
+    # positions are row-major with "model" last: position i is data shard
+    # i // n_model, model column i % n_model
+    for pos, device in enumerate(mesh.devices):
+        di, mi = divmod(pos, n_model)
+        fs = slice(mi * fl, (mi + 1) * fl)
+        pw = {"router": p["router"].to(device),
+              "w_in": p["w_in"][:, :, fs].to(device),
+              "w_out": p["w_out"][:, fs, :].to(device)}
+        if "w_gate" in p:
+            pw["w_gate"] = p["w_gate"][:, :, fs].to(device)
+        xt = x[di * bl : (di + 1) * bl].to(device).reshape(tl, d)
+        gates, weights, experts = _route(cfg, pw, xt)
+        partials[di][mi], keep = _dispatch(cfg, pw, xt, experts, weights, cap)
+        if mi == 0:
+            lb[di] = _lb_loss(cfg, gates, experts)
+            kept[di] = torch.mean(keep.to(torch.float32))
+    first = mesh.first_device
+    out = torch.cat([psum(row, first) for row in partials], dim=0)
+    aux = {"lb_loss": torch.mean(torch.stack([v.to(first) for v in lb])),
+           "dropped_frac": torch.mean(torch.stack([1.0 - v.to(first) for v in kept])),
+           "expert_choice": torch.zeros((1, cfg.top_k), dtype=torch.int32, device=first)}
+    return out.reshape(b, s, d), aux

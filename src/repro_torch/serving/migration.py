@@ -10,7 +10,7 @@ new spec's tables start empty, so cutting over immediately would answer
 queries from a sketch that has seen nothing.  The migration protocol the
 serving endpoint (serving/sketch_engine.SketchTopKEndpoint) implements by
 mixing in :class:`MigratingSurface` on top of this holder (the sharded
-service, not ported yet, is its other user in the reference):
+service, ``serving/sharded_topk.ShardedTopKService``, is its other user):
 
   1. ``begin_migration(new_spec, params, warmup=W)`` builds a FRESH successor
      service on the new spec (empty tables, empty pools, total = 0);

@@ -1705,3 +1705,59 @@ def test_apply_moe_on_the_card_equals_cpu(cuda, t):
     assert float(gaux["dropped_frac"]) == float(waux["dropped_frac"])
     assert (float(waux["dropped_frac"]) > 0) == (t * cfg.top_k > 4096)
     _card_close(got, want)
+
+
+@pytest.mark.parametrize("mode", ["ep_shardmap", "local"])
+def test_moe_mesh_dispatch_on_the_card_equals_cpu(cuda, mode):
+    """The mesh dispatches on a (2, 2) mesh of this card against the same
+    mesh on the CPU: routing and drops equal, outputs within tolerance."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import shard_ctx
+
+    cfg = dataclasses.replace(get_reduced("mixtral-8x22b"), dtype="float32",
+                              moe_dispatch=mode, capacity_factor=1.0)
+    host = moe.make_moe_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for t in (64, 9000):                       # dropless, and drops a shard
+        x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+            (4, t // 4, cfg.d_model)).astype(np.float32))
+        with shard_ctx.activation_sharding(Mesh((2, 2), ("data", "model"), ["cpu"] * 4)):
+            want, waux = moe.apply_moe(cfg, host, x)
+        with shard_ctx.activation_sharding(Mesh((2, 2), ("data", "model"), [cuda] * 4)):
+            got, gaux = moe.apply_moe(cfg, {k: v.to(cuda) for k, v in host.items()},
+                                      x.to(cuda))
+        assert got.device.type == "cuda"
+        assert float(gaux["dropped_frac"]) == float(waux["dropped_frac"])
+        assert (float(waux["dropped_frac"]) > 0) == (t > 64)
+        assert torch.equal(gaux["expert_choice"].cpu(), waux["expert_choice"])
+        np.testing.assert_allclose(float(gaux["lb_loss"]), float(waux["lb_loss"]), rtol=1e-5)
+        _card_close(got, want)
+
+
+def test_trace_reader_reads_a_cuda_trace(cuda, tmp_path):
+    """A real CUDA trace: the events and the exported chrome trace give the
+    same kernels and launches, and the chrome trace the copies' bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace_analysis as ta
+
+    a = torch.randn(512, 512, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        b = a @ a
+        host = b.cpu()
+        back = torch.ones(1000).to(cuda)
+        torch.cuda.synchronize()
+    assert host.shape == (512, 512) and back.device.type == "cuda"
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev, js = ta.summarize(ta.read(prof)), ta.summarize(ta.read(path))
+    assert ev["launches"] >= 1
+    assert {k: v[1] for k, v in ev["kernels"].items()} == \
+        {k: v[1] for k, v in js["kernels"].items()}
+    assert js["memcpy"]["DtoH"]["bytes"] == 512 * 512 * 4
+    assert js["memcpy"]["HtoD"]["bytes"] == 1000 * 4
+    assert ev["memcpy"]["DtoH"]["count"] == 1 and ev["memcpy"]["DtoH"]["bytes"] is None
+    for s in (ev, js):
+        assert 0 < s["device_busy_s"] <= s["wall_s"] and 0 <= s["idle_share"] < 1
+        assert s["device_busy_union_s"] <= s["device_busy_s"] + 1e-12
+    assert "aten::mm" in ta.host_totals(ta.read(path))
