@@ -176,7 +176,19 @@ Phases, any failure of which exits non-zero:
    once more and read by ``trace_analysis`` from the events and from the
    exported chrome trace, which must give the profile helpers' kernel
    totals and busy share.  No kernel of the port runs there but the main
-   path's, and no row's launches change.
+   path's, and no row's launches change;
+9. the examples: each twin of ``examples/`` (``examples_torch/``) run by
+   its own ``run`` at its example's default sizes on the card (the
+   kernels: the endpoints', services' and ``KernelSketch``'s defaults) and
+   again on the CPU (the plain versions) with the same key, from
+   ``--seed``; ``stream_pipeline`` at 2,000,000 occurrences in linear
+   mode and at 200,000 in conservative mode.  Each twin's own asserts
+   hold (none is caught); its card answers equal its CPU answers
+   (``EXAMPLE_*`` say what is compared and how); its launches are counted
+   on the card, none on the CPU: ``quickstart`` launches no kernel, every
+   other twin each kernel ``EXAMPLE_RUNS`` names.  Each twin's seconds on
+   both devices printed; every row's ``launches_by_path`` gains an
+   ``examples`` entry.
 
 The second line from the end is one JSON object with a row per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -357,6 +369,40 @@ DRYRUN_CELLS = (("starcoder2-7b", "train_4k"), ("starcoder2-7b", "decode_32k"),
                 ("mamba2-130m", "train_4k"), ("mamba2-130m", "long_500k"),
                 ("jamba-1.5-large-398b", "prefill_32k"), ("jamba-1.5-large-398b", "long_500k"),
                 ("seamless-m4t-medium", "train_4k"), ("seamless-m4t-medium", "decode_32k"))
+# phase 9: the twins of examples/ (examples_torch/), each run by its own
+# ``run`` on the card at its example's default sizes and again on the CPU
+# with the same key; stream_pipeline once more in conservative mode at the
+# smaller --occurrences its help text asks for.  Each entry: the run's
+# label, the twin, the keys it takes (search and sketch for
+# stream_pipeline), its keyword arguments and the kernels it must launch
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples_torch"
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart", 1, {}, ()),
+    ("stream_pipeline", "stream_pipeline", 2, {}, ("sketch_update", "sketch_query")),
+    ("stream_pipeline_conservative", "stream_pipeline", 2,
+     dict(mode="conservative", occurrences=200_000),
+     ("sketch_update_conservative", "sketch_query")),
+    ("heavy_hitters", "heavy_hitters", 1, {},
+     ("hier_update", "hier_query", "conservative_fold")),
+    ("async_serving", "async_serving", 1, {}, ("hier_update", "hier_query")),
+    ("windowed_topk", "windowed_topk", 1, {},
+     ("hier_update", "hier_query", "hier_update_f32", "hier_query_f32")),
+    ("sharded_serving", "sharded_serving", 1, {}, ("hier_update", "hier_query")),
+    ("fault_recovery", "fault_recovery", 1, {}, ("hier_update", "hier_query")),
+    ("ngram_stats", "ngram_stats", 1, {}, ("sketch_update",)),
+)
+# what a twin's card run is held to against its CPU run: every answer
+# equal (int32 estimates and tables, the decayed window's float32 tables,
+# whose partial sums are integers below 2^24 and whose Horner merge the
+# port rounds alike on any device), but for host timings and the round
+# count of async_serving's threaded phase (it depends on timing), the
+# search's float32 sigmas (reductions in another order: rtol 1e-5) and
+# ngram_stats' bfloat16 losses over 40 steps (rtol EXAMPLE_LOSS_RTOL: the
+# card's and the CPU's matmuls sum in other orders; 5.85e-5 measured on an
+# H100 80GB HBM3 at 700 W)
+EXAMPLE_UNCOMPARED = {"greedy_s", "ingest_s", "rounds", "device"}
+EXAMPLE_LOSS_RTOL = 1e-3
+EXAMPLE_RTOL = {"sigma": 1e-5, "losses": EXAMPLE_LOSS_RTOL}
 CSRC = "src/repro_torch/kernels/csrc/"
 # kernel name: (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -3647,6 +3693,93 @@ def mesh_dryrun_path(seed: int, spec, params, stream, thr) -> dict:
     return e2e
 
 
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module; its ``_common`` import
+    needs the directory on ``sys.path``."""
+    import importlib.util
+
+    if str(EXAMPLES_DIR) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES_DIR))
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_diffs(card, cpu, path: str = "", rtol: float = 0.0) -> list:
+    """Where a twin's card run differs from its CPU run (``EXAMPLE_*``
+    above say what is compared and how), as readable paths."""
+    if dataclasses.is_dataclass(card) and not isinstance(card, type):
+        card, cpu = dataclasses.asdict(card), dataclasses.asdict(cpu)
+    if isinstance(card, dict):
+        if set(card) != set(cpu):
+            return [f"{path}: keys {sorted(card)} != {sorted(cpu)}"]
+        return [d for k in card if k not in EXAMPLE_UNCOMPARED
+                for d in example_diffs(card[k], cpu[k], f"{path}.{k}",
+                                       EXAMPLE_RTOL.get(k, rtol))]
+    if isinstance(card, (list, tuple)) and not isinstance(card, str):
+        if len(card) != len(cpu):
+            return [f"{path}: length {len(card)} != {len(cpu)}"]
+        return [d for i, (a, b) in enumerate(zip(card, cpu))
+                for d in example_diffs(a, b, f"{path}[{i}]", rtol)]
+    if isinstance(card, torch.Tensor):
+        card, cpu = card.cpu().numpy(), cpu.cpu().numpy()
+    if isinstance(card, np.ndarray) or isinstance(card, float):
+        a, b = np.asarray(card), np.asarray(cpu)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return [f"{path}: {a.dtype}{a.shape} != {b.dtype}{b.shape}"]
+        same = (np.allclose(a, b, rtol=rtol, atol=0) if rtol
+                else np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+        return [] if same else [f"{path}: differs (rtol {rtol})"]
+    return [] if card == cpu else [f"{path}: {card!r} != {cpu!r}"]
+
+
+def examples_path(seed: int, card: str, device: str = DEVICE):
+    """Phase 9: every twin of ``examples/`` on ``device`` and on the CPU
+    with the same key; the device run's launches counted (the CPU run's
+    too, which must be none) and its answers held against the CPU run's.
+    ``card``: the card's name and power limit, for the printed lines."""
+    SeedKey = load_example("_common").SeedKey
+    out, launches = {}, {}
+    for label, twin, n_keys, kw, expected in EXAMPLE_RUNS:
+        run = load_example(twin).run
+        keys = [SeedKey(seed + i) for i in range(n_keys)]
+        _cuda.reset_launches()
+        card_out, card_s = wall(lambda: run(device, *keys, **kw))
+        launches[label] = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        cpu_out, cpu_s = wall(lambda: run("cpu", *keys, **kw))
+        check(not any(_cuda.LAUNCHES.values()), f"examples: {label} on the CPU launched nothing")
+        diffs = example_diffs(card_out, cpu_out, label)
+        check(not diffs, f"examples: {label} on the card answers as on the CPU: {diffs[:5]}")
+        got = {k: v for k, v in launches[label].items() if v}
+        if expected:
+            check(all(got.get(k) for k in expected),
+                  f"examples: {label} launched {sorted(expected)} (counted {got})")
+        else:
+            check(not got, f"examples: {label} launched no kernel (counted {got})")
+        out[label] = {"card_s": card_s, "cpu_s": cpu_s, "launches": got}
+        if "losses" in card_out:
+            out[label]["loss_max_rel_err"] = max(
+                abs(a - b) / abs(b) for a, b in zip(card_out["losses"], cpu_out["losses"]))
+        log(f"example {label}: card {card_s:.3f} s, CPU {cpu_s:.3f} s, launches {got} "
+            f"({card})")
+        torch.cuda.empty_cache()
+    totals = {k: sum(v[k] for v in launches.values()) for k in _cuda.LAUNCHES}
+    return totals, out
+
+
+def add_example_launches(rows, totals: dict) -> None:
+    """Every row's ``launches_by_path`` gains its ``examples`` count (0
+    where no twin launched it); a row that had no breakdown keeps its
+    earlier launches under ``earlier_phases``.  ``launches`` stays the sum."""
+    for row in rows:
+        by = row.setdefault("launches_by_path", {"earlier_phases": row["launches"]})
+        by["examples"] = totals[row["name"]]
+        row["launches"] = sum(by.values())
+
+
 def add_phase_launches(rows, by_phase: dict) -> None:
     """Each phase kernel's row gains its launches in each of ``by_phase``'s
     paths under ``launches_by_path``; ``launches`` stays their sum."""
@@ -3839,6 +3972,12 @@ def main(argv=None) -> int:
     log(f"mesh and dry-run phase {t_md:.1f} s ({card})")
     add_phase_launches(kr.rows, {"sharded": sh_launches, "recovery": rec_launches,
                                  "model_serving": ms_launches})
+
+    # phase 9: the examples' twins
+    (ex_launches, e2e["examples"]), t_ex = wall(lambda: examples_path(args.seed, card))
+    e2e["examples"]["phase_s"] = t_ex
+    log(f"examples phase {t_ex:.1f} s ({card})")
+    add_example_launches(kr.rows, ex_launches)
     log("e2e " + json.dumps(e2e))
     print(json.dumps({"kernels": kr.rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

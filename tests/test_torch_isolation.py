@@ -1,10 +1,11 @@
-"""Import guard for the port: ``repro_torch`` and ``chip_smoke.py`` stand
-alone.
+"""Import guard for the port: ``repro_torch``, ``chip_smoke.py`` and the
+twins of the examples (``examples_torch/``) stand alone.
 
-No module of the port imports ``jax`` or anything of the JAX package
-``repro`` (checked both by importing everything with jax made unimportable
-and by scanning the sources), and no entry point quietly runs on the CPU:
-with no device named and no CUDA card, it raises.
+No module of the port or twin imports ``jax`` or anything of the JAX
+package ``repro`` (checked both by importing everything with jax made
+unimportable and by scanning the sources), and no entry point quietly runs
+on the CPU: with no device named and no CUDA card, it raises, and a twin
+run with no ``--device`` exits non-zero without printing an answer.
 """
 import ast
 import os
@@ -18,7 +19,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = ROOT / "examples_torch"
+TWIN_NAMES = ("quickstart", "stream_pipeline", "heavy_hitters", "async_serving",
+              "windowed_topk", "sharded_serving", "fault_recovery", "ngram_stats")
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted(TWINS.glob("*.py")))
 
 
 def _env():
@@ -48,6 +53,43 @@ print(len(names))
     assert int(out.stdout.strip()) >= 80
 
 
+def test_twins_import_with_jax_unimportable():
+    code = f"""
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(TWINS)!r})
+for name in {TWIN_NAMES!r}:
+    spec = importlib.util.spec_from_file_location(name, {str(TWINS)!r} + "/" + name + ".py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)     # the work sits behind __main__
+    assert callable(mod.run) and callable(mod.main), name
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
+             or m.startswith("examples."))
+assert not bad, bad
+assert sys.modules["jax"] is None
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_every_example_has_a_twin():
+    assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) == sorted(TWIN_NAMES)
+    assert all((TWINS / f"{name}.py").is_file() for name in TWIN_NAMES)
+
+
+@pytest.mark.parametrize("name", TWIN_NAMES)
+def test_twin_without_a_device_exits_without_an_answer(name):
+    """No ``--device`` and no card (none is visible to the subprocess): the
+    twin stops at ``resolve_device``, before it prints anything."""
+    env = dict(_env(), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(TWINS / f"{name}.py")], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "no CUDA device is available" in out.stderr
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -60,7 +102,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_reference(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "examples"}, roots
 
 
 def _entry_points():
