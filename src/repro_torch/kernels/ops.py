@@ -58,6 +58,7 @@ from repro_torch.kernels.sketch_update import (
     sketch_update_signed,
 )
 from repro_torch.kernels.sketch_update_conservative import sketch_update_conservative
+from repro_torch.tracing import span
 
 _MAX_KERNEL_FREQ = 1 << 24  # the reference's two 12-bit limbs
 
@@ -153,23 +154,27 @@ class KernelSketch:
             check_linear_kernel_freqs(freqs, self.table.dtype)
 
     def update(self, items, freqs) -> None:
-        items = np.asarray(items, dtype=np.uint32)
-        freqs = np.asarray(freqs)
-        self._check_freqs(freqs)
-        if items.shape[0] == 0:
-            return
-        chunks = self._chunks(items)
-        f = sk.as_freqs(freqs, self.device).to(self.table.dtype)
-        q, r = self.params
-        for s in range(0, items.shape[0], self.block_b):
-            blk_c, blk_f = chunks[s : s + self.block_b], f[s : s + self.block_b]
-            if self.mode == "signed":
-                sketch_update_signed(self.plan, self.table, blk_c, blk_f, q, r,
-                                     self.cs_params.sign_q, self.cs_params.sign_r)
-            elif self.mode == "conservative":
-                sketch_update_conservative(self.plan, self.table, blk_c, blk_f, q, r)
-            else:
-                sketch_update(self.plan, self.table, blk_c, blk_f, q, r)
+        with span("repro_torch.ingest.update"):
+            items = np.asarray(items, dtype=np.uint32)
+            freqs = np.asarray(freqs)
+            with span("repro_torch.ingest.check"):
+                self._check_freqs(freqs)
+            if items.shape[0] == 0:
+                return
+            with span("repro_torch.ingest.keys"):
+                chunks = self._chunks(items)
+            with span("repro_torch.ingest.freqs"):
+                f = sk.as_freqs(freqs, self.device).to(self.table.dtype)
+            q, r = self.params
+            for s in range(0, items.shape[0], self.block_b):
+                blk_c, blk_f = chunks[s : s + self.block_b], f[s : s + self.block_b]
+                if self.mode == "signed":
+                    sketch_update_signed(self.plan, self.table, blk_c, blk_f, q, r,
+                                         self.cs_params.sign_q, self.cs_params.sign_r)
+                elif self.mode == "conservative":
+                    sketch_update_conservative(self.plan, self.table, blk_c, blk_f, q, r)
+                else:
+                    sketch_update(self.plan, self.table, blk_c, blk_f, q, r)
 
     def query(self, items) -> np.ndarray:
         """Point estimates: min over rows, int32[Q] (linear and

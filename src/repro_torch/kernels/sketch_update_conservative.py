@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.hashes import IndexPlan, all_indices
+from repro_torch.tracing import span
 
 # One CTA's dynamic shared memory on an H100 (227 KB), in place of the
 # reference's 14 MiB VMEM budget (``_VMEM_BUDGET_BYTES``).
@@ -253,27 +254,28 @@ def sketch_update_conservative(plan: IndexPlan, table: torch.Tensor,
     :func:`residency` picks; CPU tensors take
     :func:`sketch_update_conservative_ref`.
     """
-    if not table.is_cuda:
-        return sketch_update_conservative_ref(plan, table, chunks, freqs, q, r)
-    name = "sketch_update_conservative"
-    _cuda.require_hash_inputs(name, plan, table, chunks, q, r, TABLE_DTYPES)
-    w, h_pad = table.shape
-    b = chunks.shape[0]
-    _cuda.require(plan.table_size <= h_pad,
-                  f"{name}: table width {h_pad} below the plan's {plan.table_size}")
-    f = _kernel_freqs(freqs, table, name, b)
-    shared = residency(w, h_pad, table.element_size()) == "shared"
-    fn = "sk_conservative_update_" + ("i32" if table.dtype == torch.int32 else "f32")
-    plan_c = _cuda.plan_struct(plan)
-    lib = _cuda.library()
-    with torch.cuda.device(table.device):
-        rc = getattr(lib, fn)(
-            ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
-            f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared),
-            buffer_items(w), _cuda.stream_of(table))
-    _cuda.check(rc, name)
-    _cuda.LAUNCHES[name] += 1
-    return table
+    with span("repro_torch.kernels.sketch_update_conservative"):
+        if not table.is_cuda:
+            return sketch_update_conservative_ref(plan, table, chunks, freqs, q, r)
+        name = "sketch_update_conservative"
+        _cuda.require_hash_inputs(name, plan, table, chunks, q, r, TABLE_DTYPES)
+        w, h_pad = table.shape
+        b = chunks.shape[0]
+        _cuda.require(plan.table_size <= h_pad,
+                      f"{name}: table width {h_pad} below the plan's {plan.table_size}")
+        f = _kernel_freqs(freqs, table, name, b)
+        shared = residency(w, h_pad, table.element_size()) == "shared"
+        fn = "sk_conservative_update_" + ("i32" if table.dtype == torch.int32 else "f32")
+        plan_c = _cuda.plan_struct(plan)
+        lib = _cuda.library()
+        with torch.cuda.device(table.device):
+            rc = getattr(lib, fn)(
+                ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
+                f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared),
+                buffer_items(w), _cuda.stream_of(table))
+        _cuda.check(rc, name)
+        _cuda.LAUNCHES[name] += 1
+        return table
 
 
 def conservative_fold_tables(tables: Sequence[torch.Tensor],
