@@ -58,6 +58,7 @@ from repro_torch.kernels.sketch_update import (
     sketch_update_signed,
 )
 from repro_torch.kernels.sketch_update_conservative import sketch_update_conservative
+from repro_torch.staging import StagingRing
 from repro_torch.tracing import span
 
 _MAX_KERNEL_FREQ = 1 << 24  # the reference's two 12-bit limbs
@@ -114,7 +115,10 @@ class KernelSketch:
     ``params``: a ``torch.Generator`` or, in place of the reference's jax
     key, the arrays of a draw -- ``(q, r)`` in linear mode, ``(q, r,
     sign_q, sign_r)`` (or a ``CountSketchParams``) in signed mode, numpy or
-    tensors.  ``block_b`` is the most rows one launch folds.
+    tensors.  ``block_b`` is the most rows one launch folds.  ``staging``
+    is the page-locked ring (``repro_torch.staging``) through which
+    :meth:`update` sends host blocks to a table on the card, with its
+    counters ``staged_blocks`` and ``staging_waits``.
     """
 
     def __init__(self, spec: sk.SketchSpec, params, *, tile_h: int = 512,
@@ -136,6 +140,7 @@ class KernelSketch:
         self.h_pad = padded_table_size(spec.table_size, tile_h)
         self.table = torch.zeros((spec.width, self.h_pad), dtype=dtype,
                                  device=self.params.q.device)
+        self.staging = StagingRing()
 
     @property
     def device(self) -> torch.device:
@@ -154,17 +159,38 @@ class KernelSketch:
             check_linear_kernel_freqs(freqs, self.table.dtype)
 
     def update(self, items, freqs) -> None:
+        """Fold a block of keys ``items`` [B, n_modules] (uint32) with
+        ``freqs`` [B], in stream order; one launch per ``block_b`` rows.
+
+        Host arrays bound for a table on the card cross through
+        :attr:`staging`: copied into a page-locked slot before the call
+        returns, then to the card without a synchronise, so the call
+        returns while the card still folds and the host prepares the next
+        block meanwhile.  Tensors already on the card, and every block of a
+        CPU table, are taken as they are.  The frequencies are checked on
+        the host first; a refused block raises before anything is staged.
+        """
         with span("repro_torch.ingest.update"):
-            items = np.asarray(items, dtype=np.uint32)
-            freqs = np.asarray(freqs)
+            on_card = isinstance(items, torch.Tensor) and items.is_cuda
+            if not on_card:
+                items = np.asarray(items, dtype=np.uint32)
+                freqs = np.asarray(freqs)
             with span("repro_torch.ingest.check"):
-                self._check_freqs(freqs)
+                self._check_freqs(freqs.cpu().numpy() if isinstance(freqs, torch.Tensor)
+                                  else freqs)
             if items.shape[0] == 0:
                 return
+            staged = not on_card and self.device.type == "cuda"
             with span("repro_torch.ingest.keys"):
-                chunks = self._chunks(items)
+                if staged:
+                    slot = self.staging.take(self.device)
+                    keys = slot.send("keys", items).to(torch.int64)
+                else:
+                    keys = as_index_tensor(items, self.device)
+                chunks = self.spec.schema.module_chunks(keys)
             with span("repro_torch.ingest.freqs"):
-                f = sk.as_freqs(freqs, self.device).to(self.table.dtype)
+                f = slot.send("freqs", freqs) if staged else sk.as_freqs(freqs, self.device)
+                f = f.to(self.table.dtype)
             q, r = self.params
             for s in range(0, items.shape[0], self.block_b):
                 blk_c, blk_f = chunks[s : s + self.block_b], f[s : s + self.block_b]

@@ -21,11 +21,16 @@ The spans the program records, each once a call:
 ``repro_torch.ingest.check``
     inside it, the host's scans of the frequencies (``_check_freqs``).
 ``repro_torch.ingest.keys``
-    inside it, the keys: the cast to int64 on the host, the copy to the
-    table's device and the split into digits (``_chunks``).
+    inside it, the keys.  Host arrays bound for the card: the wait for a
+    free slot of the sketch's staging ring (``repro_torch/staging.py``),
+    the copy into its page-locked buffer, the non-blocking copy of the
+    32-bit words to the card, their widening to int64 there and the split
+    into digits.  Otherwise: ``device.as_index_tensor`` and the split into
+    digits.
 ``repro_torch.ingest.freqs``
-    inside it, the frequencies: their copy to the table's device and the
-    cast to the table's dtype.
+    inside it, the frequencies: the copy into the slot's page-locked
+    buffer and the non-blocking copy to the card (otherwise
+    ``core/sketch.as_freqs``), then the cast to the table's dtype.
 ``repro_torch.kernels.sketch_update_conservative``
     ``kernels/sketch_update_conservative.py`` ``sketch_update_conservative``,
     inside ``update`` in conservative mode, once a block: the wrapper's
@@ -33,8 +38,20 @@ The spans the program records, each once a call:
     tensors, the plain fold).
 
 A kernel's span is named ``repro_torch.kernels.`` and the key under which
-``kernels/_cuda.LAUNCHES``, the program's one counter, counts its
-launches.
+``kernels/_cuda.LAUNCHES`` counts its launches.
+
+The program's counters, plain integers read at any time:
+
+``kernels/_cuda.LAUNCHES``
+    launches by kernel, process-wide.
+``KernelSketch.staging.staged_blocks``
+    per sketch: the ``update`` calls whose host block crossed to the card
+    through the staging ring.
+``KernelSketch.staging.staging_waits``
+    per sketch: of those, the calls that found their slot's copy still
+    pending and waited for the card, inside ``.keys``.  Near one a block,
+    the host runs ahead of the card; near zero, the card waits for the
+    host.
 """
 from __future__ import annotations
 

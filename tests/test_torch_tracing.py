@@ -1,6 +1,8 @@
 """The program's spans (``repro_torch.tracing``): a shared no-op without a
 profiler, one of each ingest span a ``KernelSketch.update`` under one,
-nested on the calling thread, and no change to what the sketch computes."""
+nested on the calling thread (on a CPU table, and on the card through the
+page-locked staging: marker ``gpu``), and no change to what the sketch
+computes."""
 import numpy as np
 import pytest
 import torch
@@ -16,10 +18,10 @@ STEPS = ("repro_torch.ingest.check", "repro_torch.ingest.keys", "repro_torch.ing
 KERNEL = "repro_torch.kernels.sketch_update_conservative"
 
 
-def _sketch(mode):
+def _sketch(mode, device="cpu"):
     spec = sk.mod_sketch_spec(KeySchema((1 << 32, 1 << 32)), [(0,), (1,)], (16, 16), 3)
     return KernelSketch(spec, torch.Generator().manual_seed(5), tile_h=128, block_b=64,
-                        device="cpu", mode=mode)
+                        device=device, mode=mode)
 
 
 def _block(seed, n=40):
@@ -47,9 +49,7 @@ def test_no_record_function_without_a_profiler(monkeypatch):
     assert made and all(name.startswith("repro_torch.") for name in made)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_update_records_each_span_once_nested(mode):
-    ks = _sketch(mode)
+def _spans_once_nested(ks, mode):
     items, freqs = _block(2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ks.update(items, freqs)
@@ -67,6 +67,23 @@ def test_update_records_each_span_once_nested(mode):
         assert outer.start <= t.start <= t.end <= outer.end, name
     order = [spans[name].time_range for name in inner]
     assert all(a.end <= b.start for a, b in zip(order, order[1:]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_update_records_each_span_once_nested(mode):
+    _spans_once_nested(_sketch(mode), mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_staged_update_records_each_span_once_nested(mode):
+    """The same spans where a host block crosses to the card through the
+    page-locked ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ks = _sketch(mode, "cuda")
+    _spans_once_nested(ks, mode)
+    assert ks.staging.staged_blocks == 1
 
 
 @pytest.mark.parametrize("mode", MODES)
