@@ -205,6 +205,11 @@ def _declare(lib) -> None:
                                         i64, vp, vp],
         "sk_conservative_update_i32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
         "sk_conservative_update_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, i32, vp],
+        "sk_conservative_rounds_i32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, vp, i32, vp,
+                                       vp, vp],
+        "sk_conservative_rounds_f32": [vp, vp, i64, i32, vp, vp, i64, vp, vp, i32, vp, i32, vp,
+                                       vp, vp],
+        "sk_conservative_rounds_grid": [vp, i32, i32, i32, vp, vp],
         "sk_conservative_fold_i32": [vp, vp, i64, i32, vp],
         "sk_conservative_fold_f32": [vp, vp, i64, i32, vp],
         "sk_chain_probe": [vp, i64, i64, i32, vp, vp],

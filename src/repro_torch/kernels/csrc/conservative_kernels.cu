@@ -60,6 +60,30 @@
 // global route slower on the H100 (PERF.md section 6), so the values are
 // loaded after it.
 
+// Claim rounds, K5's route for a large block on the global route (the table
+// in HBM, w <= 8): the single-CTA walk above keeps 131 of the H100's 132 SMs
+// idle, though a block of distinct keys is only a few items deep.  One
+// cooperative launch of as many CTAs as fit on the card folds the block in
+// rounds instead.  Each thread hashes up to kRoundItems items into registers
+// (and their cells into L2).  In a round every pending item claims each of
+// its w (row, cell) pairs with atomicMin of (round tag, item) in a claim
+// table that hashes the pairs into 2^slot_bits slots; after a grid barrier,
+// an item that holds all its claims folds, as the per-item step above, and
+// leaves.  Items that share a cell share its slot, so of the pending items
+// that share a cell only the first can fold, and the items of a round touch
+// pairwise disjoint cells: each reads what the serial fold would have read.
+// Two unrelated pairs that share a slot only delay the later item.  The
+// folded items are closed under "an earlier item shares a cell", so when a
+// round folds fewer than kTailPerCta items a CTA (the rounds' barriers then
+// cost more than they fold: PERF.md section 6), the items left are listed in
+// stream order and CTA 0 folds them with the window body above (the tail),
+// which is the serial fold of what is left.  A block past one segment
+// (2^kItemBits items, or what the grid holds) is folded segment by segment.
+// The claim table (reset in every segment; the tail's list once the rounds
+// end), the barrier's words and a count of the rounds live in scratch that
+// the wrapper allocates once per sketch
+// (kernels/sketch_update_conservative.RoundScratch).
+
 // Residency, in place of the TPU kernel's 14 MiB VMEM budget: when the table
 // (w x cols cells) fits one CTA's dynamic shared memory beside the staging
 // buffers, the CTA copies it in, folds it there, and writes it back once;
@@ -84,6 +108,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
 
 #include "hashes.cuh"
 #include "hier_fold.cuh"
@@ -216,20 +241,47 @@ __device__ Stage<T> stage_at(unsigned char* p, int w, int cap) {
 // chunks, in hashes.cuh's fused form (the chunks' low halves in registers
 // when the key has at most kRegChunks of them, `% range` as a multiply and a
 // shift), one lane per item.
-template <int kChunks>
+// kListed: position j of the fold is item order[j] (the claim rounds' tail,
+// in stream order), read past L1 since other CTAs wrote the list.
+template <int kChunks, bool kListed = false>
 struct HashCells {
+  static constexpr bool kIndirect = kListed;
   const IndexPlanC* plan;
   const HashDivsC* divs;
   const int64_t* __restrict__ chunks;   // [B, total_chunks]
   const int64_t* __restrict__ q;        // [w, total_chunks]
   const int64_t* __restrict__ r;        // [w, n_groups]
+  const int32_t* order;                 // kListed: [n] items
+
+  __device__ __forceinline__ int64_t item(int64_t j) const {
+    if constexpr (kListed) return __ldcg(order + j);
+    return j;
+  }
+
+  // Item b's cell per row, c[k] for k < w <= kRegRows.
+  __device__ __forceinline__ void cells_of(int64_t b, int w, int32_t* c) const {
+    const int nc = plan->total_chunks;
+    const int64_t* x = chunks + b * nc;
+    uint32_t xr[kChunks > 0 ? kChunks : 1];
+    load_chunks<kChunks>(*plan, x, true, xr);
+#pragma unroll
+    for (int k = 0; k < kRegRows; ++k) {
+      if (k < w) {
+        uint32_t idx, bits;
+        index_and_sign_bits<kChunks, false>(*plan, *divs, xr, x, q + (int64_t)k * nc,
+                                            r + (int64_t)k * plan->n_groups, nullptr, nullptr,
+                                            idx, bits);
+        c[k] = (int32_t)idx;
+      }
+    }
+  }
 
   template <typename T>
   __device__ void stage(const Stage<T>& st, int cap, int w, int64_t base, int cnt,
                         int lane) const {
     const int nc = plan->total_chunks;
     for (int b = lane; b < cnt; b += 32) {
-      const int64_t* x = chunks + (base + b) * nc;
+      const int64_t* x = chunks + item(base + b) * nc;
       uint32_t xr[kChunks > 0 ? kChunks : 1];
       load_chunks<kChunks>(*plan, x, true, xr);
       for (int k = 0; k < w; ++k) {
@@ -243,6 +295,7 @@ struct HashCells {
   }
 
   __device__ void prefetch(int64_t base, int cnt, int lane, int) const {
+    if constexpr (kListed) return;
     const char* p = reinterpret_cast<const char*>(chunks + base * plan->total_chunks);
     const int bytes = cnt * plan->total_chunks * 8;
     for (int o = lane * 128; o < bytes; o += 32 * 128) prefetch_l2(p + o);
@@ -251,8 +304,11 @@ struct HashCells {
 
 // K5i's cells: given int64 indices [w, n].
 struct GivenCells {
+  static constexpr bool kIndirect = false;
   const int64_t* __restrict__ idx;
   int64_t n;
+
+  __device__ __forceinline__ int64_t item(int64_t j) const { return j; }
 
   template <typename T>
   __device__ void stage(const Stage<T>& st, int cap, int w, int64_t base, int cnt,
@@ -297,13 +353,13 @@ __device__ __forceinline__ void stage_chunk(const Stage<T>& st, int cap, int w,
                                             int32_t* count) {
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1;
-  if (next > 0) {
+  if (!Cells::kIndirect && next > 0) {
     cells.prefetch(base + step, next, lane, w);
     const char* fp = reinterpret_cast<const char*>(freqs + base + step);
     for (int o = lane * 128; o < next * (int)sizeof(T); o += 32 * 128) prefetch_l2(fp + o);
   }
   cells.stage(st, cap, w, base, cnt, lane);
-  for (int b = lane; b < cnt; b += 32) st.f[b] = freqs[base + b];
+  for (int b = lane; b < cnt; b += 32) st.f[b] = freqs[cells.item(base + b)];
   __syncwarp();
   if (table != nullptr) {
     for (int i = lane; i < cnt * w; i += 32) {
@@ -580,6 +636,242 @@ __device__ void fold_table(T* table, int64_t row_stride, int64_t cols, int w, bo
     fold_route<T, false, kRegs>(table, row_stride, cols, w, freqs, n, cap, n_buf, cells);
 }
 
+// ---- claim rounds (see the note at the top) ----
+
+constexpr int kItemBits = 17;                  // a segment's item in a claim
+constexpr int kRoundItems = 2;                 // items a thread holds in registers
+constexpr uint32_t kTagTop = (1u << (32 - kItemBits)) - 2;   // round 0's tag; later rounds lower
+constexpr int kMaxRounds = (int)kTagTop;       // a segment's rounds before its tail
+constexpr uint32_t kFreeSlot = 0xffffffffu;    // above every claim
+constexpr int kMaxCtas = 1024;
+constexpr int kTailPerCta = 2;                 // a round folding fewer items a CTA ends the rounds
+// ctl words: the barrier's arrivals (low half) and the sum it carries (high
+// half) in one 64-bit word; its generation (high) and last sum (low) in
+// another, which the CTAs poll, on a line of its own; from kCtlCta on, one
+// word per CTA
+constexpr int kCtlCount = 0, kCtlPub = 32, kCtlCta = 64;
+
+// The launcher fills it from the wrapper's scratch (RoundScratch).
+struct RoundsC {
+  uint32_t* claims;   // [1 << slot_bits] claim slots; the tail's list once the rounds end
+  int32_t slot_bits;
+  int32_t seg;        // items a segment holds
+  uint32_t* ctl;      // [kCtlCta + kMaxCtas], all zero before the sketch's first launch
+  int64_t* stats;     // [4] added to: blocks, rounds, items folded in rounds, items to the tail
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire64(const uint32_t* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier across the launch's CTAs (all resident: a cooperative launch)
+// that sums one value per CTA.  Thread 0 of each CTA adds (its value, one
+// arrival) to the count word; the last to arrive clears it and publishes
+// (generation + 1, sum) with a release store, which the others poll for.
+// So the count is zero again when the launch ends.  `gen`, thread 0's, is
+// the generation it last saw.
+__device__ uint32_t grid_sum(uint32_t* ctl, uint32_t mine, uint32_t& gen) {
+  __shared__ uint32_t total;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    auto* count = reinterpret_cast<unsigned long long*>(ctl + kCtlCount);
+    __threadfence();
+    const unsigned long long old = atomicAdd(count, (unsigned long long)mine << 32 | 1ull);
+    uint32_t sum;
+    if ((uint32_t)old == gridDim.x - 1) {
+      sum = (uint32_t)(old >> 32) + mine;
+      atomicExch(count, 0ull);
+      __threadfence();
+      const unsigned long long pub = (unsigned long long)(gen + 1) << 32 | sum;
+      asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(ctl + kCtlPub), "l"(pub)
+                   : "memory");
+    } else {
+      unsigned long long pub;
+      do {
+        pub = ld_acquire64(ctl + kCtlPub);
+      } while ((uint32_t)(pub >> 32) == gen);
+      sum = (uint32_t)pub;
+    }
+    __threadfence();
+    ++gen;
+    total = sum;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The claim slot of row k's cell: the top slot_bits bits of a Fibonacci hash
+// (kernels/sketch_update_conservative.claim_slots is its plain twin).
+__device__ __forceinline__ uint32_t claim_slot(int k, int32_t cell, int slot_bits) {
+  const uint64_t key = (uint64_t)k << 32 | (uint32_t)cell;
+  return (uint32_t)((key * 0x9E3779B97F4A7C15ull) >> (64 - slot_bits));
+}
+
+// One item's conservative step on its cells c[k] (k < w), as the per-item
+// fold: est = min_k cur_k + f, each cell raised to est.  Reads past L1: other
+// CTAs wrote the cells in earlier rounds.
+template <typename T>
+__device__ __forceinline__ void fold_claimed(T* table, int64_t stride, int w, const int32_t* c,
+                                             T f) {
+  T cur[kRegRows];
+  T m = ConsOps<T>::top();
+#pragma unroll
+  for (int k = 0; k < kRegRows; ++k) {
+    if (k < w) {
+      cur[k] = __ldcg(table + (int64_t)k * stride + c[k]);
+      m = min2(m, cur[k]);
+    }
+  }
+  const T est = ConsOps<T>::add(m, f);
+#pragma unroll
+  for (int k = 0; k < kRegRows; ++k)
+    if (k < w && est > cur[k]) table[(int64_t)k * stride + c[k]] = est;
+}
+
+// Each flagged item's rank among the CTA's flagged items in stream order
+// (item u of thread t at u * blockDim.x + t); returns how many are flagged.
+__device__ __forceinline__ uint32_t cta_ranks(const bool* flag, uint32_t* rank) {
+  __shared__ uint32_t counts[kRoundItems][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ballot[kRoundItems];
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kRoundItems; ++u) {
+    ballot[u] = __ballot_sync(kFull, flag[u]);
+    if (lane == 0) counts[u][warp] = __popc(ballot[u]);
+  }
+  __syncthreads();
+  uint32_t total = 0;
+#pragma unroll
+  for (int u = 0; u < kRoundItems; ++u) {
+    for (int v = 0; v < kThreads / 32; ++v) {
+      if (v == warp) rank[u] = total + __popc(ballot[u] & ((1u << lane) - 1));
+      total += counts[u][v];
+    }
+  }
+  return total;
+}
+
+// The sum of the per-CTA words of the CTAs before this one.
+__device__ __forceinline__ uint32_t ctas_before(const uint32_t* ctl) {
+  __shared__ uint32_t before;
+  if (threadIdx.x < 32) {
+    uint32_t s = 0;
+    for (uint32_t c = threadIdx.x; c < blockIdx.x; c += 32) s += __ldcg(ctl + kCtlCta + c);
+    s = __reduce_add_sync(kFull, s);
+    if (threadIdx.x == 0) before = s;
+  }
+  __syncthreads();
+  return before;
+}
+
+template <typename T, int kChunks>
+__device__ void fold_in_rounds(const IndexPlanC& plan, const HashDivsC& divs, T* table,
+                               int64_t h_pad, int w, const int64_t* __restrict__ chunks,
+                               const T* __restrict__ freqs, int64_t n,
+                               const int64_t* __restrict__ q, const int64_t* __restrict__ r,
+                               int cap, int n_buf, const RoundsC& rs) {
+  const HashCells<kChunks> cells{&plan, &divs, chunks, q, r, nullptr};
+  const uint32_t n_ctas = gridDim.x;
+  const int bits = rs.slot_bits;
+  uint32_t gen = threadIdx.x == 0 ? (uint32_t)(ld_acquire64(rs.ctl + kCtlPub) >> 32) : 0;
+  int64_t rounds = 0, in_rounds = 0, in_tail = 0;
+  for (int64_t s0 = 0; s0 < n; s0 += rs.seg) {
+    const int seg = (int)(n - s0 < rs.seg ? n - s0 : rs.seg);
+    const int per = (seg + (int)n_ctas - 1) / (int)n_ctas;
+    const int lo = (int)blockIdx.x * per, hi = seg < lo + per ? seg : lo + per;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (int64_t)1 << bits;
+         i += (int64_t)n_ctas * blockDim.x)
+      rs.claims[i] = kFreeSlot;
+    // hash: item u of this thread is the segment's item at[u]; zero
+    // frequencies change nothing and take no part
+    int32_t c[kRoundItems][kRegRows];
+    uint32_t at[kRoundItems];
+    T f[kRoundItems];
+    bool pend[kRoundItems];
+    uint32_t mine = 0;
+#pragma unroll
+    for (int u = 0; u < kRoundItems; ++u) {
+      at[u] = (uint32_t)(lo + u * (int)blockDim.x + (int)threadIdx.x);
+      f[u] = (int)at[u] < hi ? freqs[s0 + at[u]] : T(0);
+      pend[u] = f[u] != T(0);
+      if (pend[u]) {
+        cells.cells_of(s0 + at[u], w, c[u]);
+#pragma unroll
+        for (int k = 0; k < kRegRows; ++k)
+          if (k < w) prefetch_l2(table + (int64_t)k * h_pad + c[u][k]);
+      }
+      mine += __syncthreads_count(pend[u]);
+    }
+    uint32_t pending = grid_sum(rs.ctl, mine, gen);
+    bool tail = false;
+    for (int round = 0; pending > 0; ++round) {
+      const uint32_t tag = (kTagTop - (uint32_t)round) << kItemBits;
+#pragma unroll
+      for (int u = 0; u < kRoundItems; ++u) {
+        if (pend[u]) {
+#pragma unroll
+          for (int k = 0; k < kRegRows; ++k)
+            if (k < w) atomicMin(rs.claims + claim_slot(k, c[u][k], bits), tag | at[u]);
+        }
+      }
+      grid_sum(rs.ctl, 0, gen);
+      mine = 0;
+#pragma unroll
+      for (int u = 0; u < kRoundItems; ++u) {
+        bool won = pend[u];
+        if (won) {
+#pragma unroll
+          for (int k = 0; k < kRegRows; ++k)
+            if (k < w) won &= __ldcg(rs.claims + claim_slot(k, c[u][k], bits)) == (tag | at[u]);
+        }
+        if (won) {
+          fold_claimed(table, h_pad, w, c[u], f[u]);
+          pend[u] = false;
+        }
+        mine += __syncthreads_count(won);
+      }
+      const uint32_t folded = grid_sum(rs.ctl, mine, gen);
+      pending -= folded;
+      in_rounds += folded;
+      ++rounds;
+      if (pending > 0 && (folded < kTailPerCta * n_ctas || round + 1 == kMaxRounds)) {
+        tail = true;
+        break;
+      }
+    }
+    if (!tail) continue;
+    // the tail: the items left, listed in stream order over the claim table,
+    // folded by CTA 0's window body
+    uint32_t rank[kRoundItems];
+    const uint32_t left = cta_ranks(pend, rank);
+    if (threadIdx.x == 0) atomicExch(rs.ctl + kCtlCta + blockIdx.x, left);
+    grid_sum(rs.ctl, 0, gen);
+    const uint32_t before = ctas_before(rs.ctl);
+#pragma unroll
+    for (int u = 0; u < kRoundItems; ++u)
+      if (pend[u]) rs.claims[before + rank[u]] = (uint32_t)(s0 + at[u]);
+    grid_sum(rs.ctl, 0, gen);
+    if (blockIdx.x == 0) {
+      const HashCells<kChunks, true> listed{&plan, &divs, chunks, q, r,
+                                            reinterpret_cast<const int32_t*>(rs.claims)};
+      fold_route<T, false, true>(table, h_pad, h_pad, w, freqs, (int64_t)pending, cap, n_buf,
+                                 listed);
+    }
+    in_tail += pending;
+    if (s0 + seg < n)   // the next segment resets the claims, which hold the list
+      grid_sum(rs.ctl, 0, gen);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    rs.stats[0] += 1;
+    rs.stats[1] += rounds;
+    rs.stats[2] += in_rounds;
+    rs.stats[3] += in_tail;
+  }
+}
+
 // Shared memory of one launch: the largest resident table (rounded to 16
 // bytes), `n_buf` staging buffers of `cap` items and the reserve.  The
 // buffers take what the table leaves of one CTA's limit, 2 to kMaxBuffers
@@ -602,16 +894,24 @@ inline int buffers_for(int w, size_t table_bytes, int cap, size_t itemsize) {
 // `sketch_update_conservative_pallas` (`_conservative_kernel`, and the
 // residency rule `conservative_chunk_b`).  One CTA; its producers hash each
 // chunk's (row, item) cells into shared memory.
-template <typename T, int kChunks, bool kRegs>
+// kRounds: the claim rounds on every CTA of a cooperative launch, the
+// tail on CTA 0 (global route, kRegs).
+template <typename T, int kChunks, bool kRegs, bool kRounds>
 __global__ void __launch_bounds__(kThreads)
     sk_conservative_update_kernel(const __grid_constant__ IndexPlanC plan,
                                   const __grid_constant__ HashDivsC divs, T* table,
                                   int64_t h_pad, int32_t w, const int64_t* __restrict__ chunks,
                                   const T* __restrict__ freqs, int64_t n,
                                   const int64_t* __restrict__ q, const int64_t* __restrict__ r,
-                                  int32_t shared, int32_t cap, int32_t n_buf) {
-  const HashCells<kChunks> cells{&plan, &divs, chunks, q, r};
-  fold_table<T, kRegs>(table, h_pad, h_pad, w, shared != 0, freqs, n, cap, n_buf, cells);
+                                  int32_t shared, int32_t cap, int32_t n_buf,
+                                  const __grid_constant__ RoundsC rounds) {
+  if constexpr (kRounds) {
+    fold_in_rounds<T, kChunks>(plan, divs, table, h_pad, w, chunks, freqs, n, q, r, cap, n_buf,
+                               rounds);
+  } else {
+    const HashCells<kChunks> cells{&plan, &divs, chunks, q, r, nullptr};
+    fold_table<T, kRegs>(table, h_pad, h_pad, w, shared != 0, freqs, n, cap, n_buf, cells);
+  }
 }
 
 // K5i: the same fold on given indices (int64 [w, B] per table), every table
@@ -669,16 +969,100 @@ int conservative_update(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t
   const int n_buf = buffers_for(w, table_bytes, cap, sizeof(T));
   const size_t smem = fold_smem_bytes(w, table_bytes, cap, sizeof(T), n_buf);
   const bool regs = w <= kRegRows, in_regs = chunks_in_registers(*plan);
-  auto kernel = regs ? (in_regs ? sk_conservative_update_kernel<T, kRegChunks, true>
-                                : sk_conservative_update_kernel<T, 0, true>)
-                     : (in_regs ? sk_conservative_update_kernel<T, kRegChunks, false>
-                                : sk_conservative_update_kernel<T, 0, false>);
+  auto kernel = regs ? (in_regs ? sk_conservative_update_kernel<T, kRegChunks, true, false>
+                                : sk_conservative_update_kernel<T, 0, true, false>)
+                     : (in_regs ? sk_conservative_update_kernel<T, kRegChunks, false, false>
+                                : sk_conservative_update_kernel<T, 0, false, false>);
   const int rc = opt_in_smem(kernel, smem);
   if (rc) return rc;
   kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(*plan, make_hash_divs(*plan), table, h_pad,
                                                       w, chunks, freqs, n, q, r, shared, cap,
-                                                      n_buf);
+                                                      n_buf, RoundsC{});
   return (int)cudaGetLastError();
+}
+
+// The claim rounds' launch: its kernel, shared memory, CTAs (as many as fit
+// on the card, at most kMaxCtas) and segment (items).
+template <typename T>
+struct RoundsLaunch {
+  decltype(&sk_conservative_update_kernel<T, 0, true, true>) kernel;
+  int n_buf;
+  size_t smem;
+  int ctas;
+  int seg;
+};
+
+// The CTAs of a rounds launch, found once per kernel instance, shared memory
+// and device (the occupancy query is not free on the host).
+struct GridSize {
+  const void* kernel;
+  int device;
+  size_t smem;
+  int ctas;
+};
+constexpr int kMaxGridSizes = 32;
+std::mutex grid_lock;
+GridSize grid_sizes[kMaxGridSizes];
+int n_grid_sizes = 0;
+
+template <typename K>
+int resident_ctas(K kernel, size_t smem, int* ctas) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(grid_lock);
+  for (int i = 0; i < n_grid_sizes; ++i) {
+    const GridSize& g = grid_sizes[i];
+    if (g.kernel == (const void*)kernel && g.device == device && g.smem == smem) {
+      *ctas = g.ctas;
+      return 0;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *ctas = per_sm * sms < kMaxCtas ? per_sm * sms : kMaxCtas;
+  if (n_grid_sizes < kMaxGridSizes)
+    grid_sizes[n_grid_sizes++] = {(const void*)kernel, device, smem, *ctas};
+  return 0;
+}
+
+template <typename T>
+int rounds_launch(const IndexPlanC* plan, int32_t w, int32_t cap, RoundsLaunch<T>* out) {
+  if (cap < 1 || cap > kMaxCap || w < 1 || w > kRegRows) return (int)cudaErrorInvalidValue;
+  out->kernel = chunks_in_registers(*plan) ? sk_conservative_update_kernel<T, kRegChunks, true, true>
+                                           : sk_conservative_update_kernel<T, 0, true, true>;
+  out->n_buf = buffers_for(w, 0, cap, sizeof(T));
+  out->smem = fold_smem_bytes(w, 0, cap, sizeof(T), out->n_buf);
+  int rc = opt_in_smem(out->kernel, out->smem);
+  if (!rc) rc = resident_ctas(out->kernel, out->smem, &out->ctas);
+  if (rc) return rc;
+  const int64_t held = (int64_t)out->ctas * kThreads * kRoundItems;
+  out->seg = (int)(held < (1 << kItemBits) ? held : 1 << kItemBits);
+  return 0;
+}
+
+template <typename T>
+int conservative_rounds(const IndexPlanC* plan, T* table, int64_t h_pad, int32_t w,
+                        const int64_t* chunks, const T* freqs, int64_t n, const int64_t* q,
+                        const int64_t* r, int32_t cap, uint32_t* claims, int32_t slot_bits,
+                        uint32_t* ctl, int64_t* stats, void* stream) {
+  if (n <= 0) return 0;
+  if (slot_bits < kItemBits || slot_bits > 30) return (int)cudaErrorInvalidValue;
+  RoundsLaunch<T> L{};
+  const int rc = rounds_launch<T>(plan, w, cap, &L);
+  if (rc) return rc;
+  IndexPlanC p = *plan;
+  HashDivsC divs = make_hash_divs(*plan);
+  int32_t shared = 0;
+  RoundsC rs{claims, slot_bits, L.seg, ctl, stats};
+  void* args[] = {&p, &divs, &table, &h_pad, &w, &chunks, &freqs, &n, &q, &r, &shared, &cap,
+                  &L.n_buf, &rs};
+  return (int)cudaLaunchCooperativeKernel((const void*)L.kernel, dim3(L.ctas), dim3(kThreads),
+                                          args, L.smem, (cudaStream_t)stream);
 }
 
 template <typename T>
@@ -722,6 +1106,44 @@ int sk_conservative_update_f32(const IndexPlanC* plan, float* table, int64_t h_p
                                int32_t cap, void* stream) {
   return conservative_update<float>(plan, table, h_pad, w, chunks, freqs, n, q, r, shared,
                                     cap, stream);
+}
+
+int sk_conservative_rounds_i32(const IndexPlanC* plan, int32_t* table, int64_t h_pad, int32_t w,
+                               const int64_t* chunks, const int32_t* freqs, int64_t n,
+                               const int64_t* q, const int64_t* r, int32_t cap,
+                               uint32_t* claims, int32_t slot_bits, uint32_t* ctl,
+                               int64_t* stats, void* stream) {
+  return conservative_rounds<int32_t>(plan, table, h_pad, w, chunks, freqs, n, q, r, cap, claims,
+                                      slot_bits, ctl, stats, stream);
+}
+
+int sk_conservative_rounds_f32(const IndexPlanC* plan, float* table, int64_t h_pad, int32_t w,
+                               const int64_t* chunks, const float* freqs, int64_t n,
+                               const int64_t* q, const int64_t* r, int32_t cap,
+                               uint32_t* claims, int32_t slot_bits, uint32_t* ctl,
+                               int64_t* stats, void* stream) {
+  return conservative_rounds<float>(plan, table, h_pad, w, chunks, freqs, n, q, r, cap, claims,
+                                    slot_bits, ctl, stats, stream);
+}
+
+// The claim rounds' schedule for this plan, rows, buffer and table type on
+// the current device (the plain model's `min_fold` and `seg`): the fewest
+// items a round folds without ending the rounds, and the segment's items.
+int sk_conservative_rounds_grid(const IndexPlanC* plan, int32_t w, int32_t cap, int32_t f32,
+                                int32_t* min_fold, int32_t* seg) {
+  int rc;
+  if (f32) {
+    RoundsLaunch<float> L{};
+    rc = rounds_launch<float>(plan, w, cap, &L);
+    *min_fold = kTailPerCta * L.ctas;
+    *seg = L.seg;
+  } else {
+    RoundsLaunch<int32_t> L{};
+    rc = rounds_launch<int32_t>(plan, w, cap, &L);
+    *min_fold = kTailPerCta * L.ctas;
+    *seg = L.seg;
+  }
+  return rc;
 }
 
 int sk_conservative_fold_i32(const ConsLevelsC* levels, const int32_t* freqs, int64_t n,

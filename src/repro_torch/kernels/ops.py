@@ -27,7 +27,8 @@ estimates on insert-only streams, but the table is NOT linear in the
 stream, so ``merge``/``state()`` are refused; queries are unchanged (K2).
 Every block is folded by K5 (kernels/sketch_update_conservative.py), in
 shared memory when the table fits one CTA's and in global memory
-otherwise; both routes are the hand-written kernel.  int32 and float32
+otherwise, a large block there in claim rounds across the card; every
+route is the hand-written kernel.  int32 and float32
 tables are both exact there.  ``sharded_update`` folds a block sharded
 over a device mesh (linear and signed modes; core/distributed.py).
 """
@@ -57,7 +58,10 @@ from repro_torch.kernels.sketch_update import (
     sketch_update,
     sketch_update_signed,
 )
-from repro_torch.kernels.sketch_update_conservative import sketch_update_conservative
+from repro_torch.kernels.sketch_update_conservative import (
+    round_scratch,
+    sketch_update_conservative,
+)
 from repro_torch.staging import StagingRing
 from repro_torch.tracing import span
 
@@ -118,7 +122,9 @@ class KernelSketch:
     tensors.  ``block_b`` is the most rows one launch folds.  ``staging``
     is the page-locked ring (``repro_torch.staging``) through which
     :meth:`update` sends host blocks to a table on the card, with its
-    counters ``staged_blocks`` and ``staging_waits``.
+    counters ``staged_blocks`` and ``staging_waits``.  ``fold_scratch``
+    (conservative mode, a table on the card that K5's claim rounds may
+    fold; else None) is their scratch, with its counter ``stats``.
     """
 
     def __init__(self, spec: sk.SketchSpec, params, *, tile_h: int = 512,
@@ -141,6 +147,7 @@ class KernelSketch:
         self.table = torch.zeros((spec.width, self.h_pad), dtype=dtype,
                                  device=self.params.q.device)
         self.staging = StagingRing()
+        self.fold_scratch = round_scratch(self.table) if mode == "conservative" else None
 
     @property
     def device(self) -> torch.device:
@@ -198,7 +205,8 @@ class KernelSketch:
                     sketch_update_signed(self.plan, self.table, blk_c, blk_f, q, r,
                                          self.cs_params.sign_q, self.cs_params.sign_r)
                 elif self.mode == "conservative":
-                    sketch_update_conservative(self.plan, self.table, blk_c, blk_f, q, r)
+                    sketch_update_conservative(self.plan, self.table, blk_c, blk_f, q, r,
+                                               self.fold_scratch)
                 else:
                     sketch_update(self.plan, self.table, blk_c, blk_f, q, r)
 

@@ -33,7 +33,15 @@ same kernel body.
 
 * **K5** (:func:`sketch_update_conservative`) hashes each item with the
   fused hash of ``csrc/hashes.cuh`` (K0) and folds it into a flat [w, h_pad]
-  table: the counterpart of the Pallas kernel.
+  table: the counterpart of the Pallas kernel.  A large block on the global
+  route (:func:`rounds_route`) is folded across the whole card in claim
+  rounds instead (:func:`claim_rounds` is their plain model): each round
+  folds, at once, every pending item that comes first among the pending
+  items in each of its cells, as far as a hashed claim table of
+  ``2^CLAIM_SLOT_BITS`` slots can tell; when a round folds fewer than two
+  items a CTA of the launch, the items left go to the window body above on
+  one CTA, in stream order.  Its scratch (:class:`RoundScratch`) is
+  allocated once per sketch.
 * **K5i** (:func:`conservative_fold_tables`) folds given indices (int64
   [w, B] per table) into every table of a hierarchy in one launch, one CTA
   per table.  The reference computes this fold in jnp outside any Pallas
@@ -53,7 +61,7 @@ the CPU.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +109,114 @@ def residency(w: int, cols: int, itemsize: int,
     limit = SHARED_BYTES if shared_bytes is None else shared_bytes
     fits = w * cols * itemsize + staging_bytes(w, itemsize) <= limit
     return "shared" if fits else "global"
+
+
+# The claim rounds (csrc/conservative_kernels.cu, "Claim rounds").
+REG_ROWS = 8                    # rows the kernels keep in registers (kRegRows)
+CLAIM_SLOT_BITS = 19            # 2 MB of int32 claim slots
+CTL_WORDS = 64 + 1024           # the grid barrier's words, then one a CTA (kMaxCtas)
+MAX_ROUNDS = (1 << 15) - 2      # a segment's rounds before its tail (kMaxRounds)
+ROUNDS_MIN_ITEMS = 512          # below, one CTA's window walk is as fast (PERF.md, section 6)
+STATS = ("blocks", "rounds", "round_items", "tail_items")
+
+
+def rounds_route(w: int, b: int) -> bool:
+    """Whether K5 folds a block of ``b`` items into a ``w``-row table on the
+    global route in claim rounds across the card: rows in registers and at
+    least ``ROUNDS_MIN_ITEMS`` items."""
+    return w <= REG_ROWS and b >= ROUNDS_MIN_ITEMS
+
+
+class RoundScratch:
+    """Device scratch of K5's claim rounds, allocated once per sketch and
+    reused for every block: ``claims`` (the claim slots, which the kernel
+    resets itself and which hold the tail's list once a segment's rounds
+    end), ``ctl`` (the grid barrier's words, zero at first) and ``stats``,
+    how often the rounds engage: int64 counts of the blocks folded in
+    rounds, their rounds, the items folded in rounds and the items handed
+    to the tail (:data:`STATS`), added to on the card and read only by
+    :meth:`counts`.  Launches that share a scratch run on one stream."""
+
+    def __init__(self, device):
+        self.claims = torch.empty(1 << CLAIM_SLOT_BITS, dtype=torch.int32, device=device)
+        self.ctl = torch.zeros(CTL_WORDS, dtype=torch.int32, device=device)
+        self.stats = torch.zeros(len(STATS), dtype=torch.int64, device=device)
+
+    def counts(self) -> dict:
+        """The counts, read from the card (this waits for it)."""
+        return dict(zip(STATS, self.stats.tolist()))
+
+
+def round_scratch(table: torch.Tensor) -> Optional[RoundScratch]:
+    """Scratch for a [w, cols] table that the claim rounds may fold: on the
+    card, on the global route, with its rows in registers; else None."""
+    w, cols = table.shape
+    if not table.is_cuda or w > REG_ROWS or residency(w, cols, table.element_size()) == "shared":
+        return None
+    return RoundScratch(table.device)
+
+
+def rounds_grid(plan: IndexPlan, w: int, dtype: torch.dtype, device) -> Tuple[int, int]:
+    """(``min_fold``, ``seg``) of :func:`claim_rounds` for the kernel's
+    launch at this plan, rows and table dtype on ``device``: two items a
+    CTA of a launch of as many CTAs as fit on the card, and the items of a
+    segment."""
+    min_fold, seg = ctypes.c_int32(), ctypes.c_int32()
+    with torch.cuda.device(device):
+        rc = _cuda.library().sk_conservative_rounds_grid(
+            ctypes.byref(_cuda.plan_struct(plan)), w, buffer_items(w),
+            int(dtype == torch.float32), ctypes.byref(min_fold), ctypes.byref(seg))
+    _cuda.check(rc, "sketch_update_conservative (rounds grid)")
+    return min_fold.value, seg.value
+
+
+def claim_slots(idx: np.ndarray, slot_bits: int = CLAIM_SLOT_BITS) -> np.ndarray:
+    """The claim slot of each (row k, cell) of ``idx`` [w, n]: the top
+    ``slot_bits`` bits of the Fibonacci hash of ``k << 32 | cell``, as
+    ``claim_slot`` in csrc/conservative_kernels.cu."""
+    rows = np.arange(idx.shape[0], dtype=np.uint64)[:, None]
+    key = rows << np.uint64(32) | idx.astype(np.uint64)
+    return ((key * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(64 - slot_bits)).astype(np.int64)
+
+
+class ClaimRounds(NamedTuple):
+    """One segment of the claim rounds: the items each round folds
+    (ascending), then the items left to the tail, in stream order."""
+    rounds: List[np.ndarray]
+    tail: np.ndarray
+
+
+def claim_rounds(idx: torch.Tensor, freqs: torch.Tensor, min_fold: int, seg: int,
+                 slot_bits: int = CLAIM_SLOT_BITS) -> List[ClaimRounds]:
+    """The claim rounds' order of work on one block (``idx`` [w, B] cells,
+    ``freqs`` [B]), segment by segment of ``seg`` items (:func:`rounds_grid`
+    gives the kernel's ``min_fold`` and ``seg``).  In a round every pending
+    item (nonzero frequency, not yet folded) claims the slots of its cells;
+    an item that is the first claimant of each of its slots folds.  The
+    rounds end when no item is left, or when a round folds fewer than
+    ``min_fold`` items (or after ``MAX_ROUNDS``): the items left are the
+    tail.  Applying the rounds in order, a round's items in any order, then
+    the tail in stream order, is the per-item fold."""
+    cols = idx.detach().cpu().numpy()
+    nonzero = (freqs.detach().cpu() != 0).numpy()
+    n = cols.shape[1]
+    out = []
+    for s0 in range(0, n, seg):
+        slots = claim_slots(cols[:, s0 : s0 + seg], slot_bits)
+        pending = s0 + np.flatnonzero(nonzero[s0 : s0 + seg])
+        rounds, tail = [], pending[:0]
+        while pending.size:
+            mine = slots[:, pending - s0]
+            first = np.full(1 << slot_bits, n, dtype=np.int64)
+            np.minimum.at(first, mine.ravel(), np.broadcast_to(pending, mine.shape).ravel())
+            won = (first[mine] == pending).all(axis=0)
+            rounds.append(pending[won])
+            pending = pending[~won]
+            if pending.size and (int(won.sum()) < min_fold or len(rounds) == MAX_ROUNDS):
+                tail = pending
+                break
+        out.append(ClaimRounds(rounds, tail))
+    return out
 
 
 class Run(NamedTuple):
@@ -245,13 +361,16 @@ def _kernel_freqs(freqs: torch.Tensor, table: torch.Tensor, name: str,
 
 def sketch_update_conservative(plan: IndexPlan, table: torch.Tensor,
                                chunks: torch.Tensor, freqs: torch.Tensor,
-                               q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                               q: torch.Tensor, r: torch.Tensor,
+                               scratch: Optional[RoundScratch] = None) -> torch.Tensor:
     """Conservatively fold one block into ``table`` ([w, h_pad], int32 or
     float32) in place, in stream order; returns it.
 
     chunks int64[B, C], freqs [B] (non-negative, cast to the table dtype),
     q int64[w, C], r int64[w, m].  CUDA tensors launch K5 on the route
-    :func:`residency` picks; CPU tensors take
+    :func:`residency` picks, on the global route in claim rounds where
+    :func:`rounds_route` says so, with ``scratch`` (a fresh
+    :class:`RoundScratch` when None); CPU tensors take
     :func:`sketch_update_conservative_ref`.
     """
     with span("repro_torch.kernels.sketch_update_conservative"):
@@ -265,14 +384,25 @@ def sketch_update_conservative(plan: IndexPlan, table: torch.Tensor,
                       f"{name}: table width {h_pad} below the plan's {plan.table_size}")
         f = _kernel_freqs(freqs, table, name, b)
         shared = residency(w, h_pad, table.element_size()) == "shared"
-        fn = "sk_conservative_update_" + ("i32" if table.dtype == torch.int32 else "f32")
+        suffix = "i32" if table.dtype == torch.int32 else "f32"
         plan_c = _cuda.plan_struct(plan)
         lib = _cuda.library()
         with torch.cuda.device(table.device):
-            rc = getattr(lib, fn)(
-                ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
-                f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared),
-                buffer_items(w), _cuda.stream_of(table))
+            if not shared and rounds_route(w, b):
+                _cuda.require(b < 1 << 31, f"{name}: {b} keys, at most 2^31 - 1 in claim rounds")
+                scratch = RoundScratch(table.device) if scratch is None else scratch
+                _cuda.require(scratch.claims.device == table.device,
+                              f"{name}: the round scratch is on {scratch.claims.device}")
+                rc = getattr(lib, "sk_conservative_rounds_" + suffix)(
+                    ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
+                    f.data_ptr(), b, q.data_ptr(), r.data_ptr(), buffer_items(w),
+                    scratch.claims.data_ptr(), CLAIM_SLOT_BITS, scratch.ctl.data_ptr(),
+                    scratch.stats.data_ptr(), _cuda.stream_of(table))
+            else:
+                rc = getattr(lib, "sk_conservative_update_" + suffix)(
+                    ctypes.byref(plan_c), table.data_ptr(), h_pad, w, chunks.data_ptr(),
+                    f.data_ptr(), b, q.data_ptr(), r.data_ptr(), int(shared),
+                    buffer_items(w), _cuda.stream_of(table))
         _cuda.check(rc, name)
         _cuda.LAUNCHES[name] += 1
         return table

@@ -52,6 +52,13 @@ The program's counters, plain integers read at any time:
     pending and waited for the card, inside ``.keys``.  Near one a block,
     the host runs ahead of the card; near zero, the card waits for the
     host.
+``KernelSketch.fold_scratch.stats``
+    per conservative sketch whose table K5's claim rounds may fold: an
+    int64 tensor on the card that K5 adds to, [blocks folded in claim
+    rounds, their rounds, items folded in rounds, items handed to the
+    one-CTA tail] (``kernels/sketch_update_conservative.RoundScratch``).
+    Reading it waits for the card, so only tools and tests read it
+    (``.counts()``), never ``update``.
 """
 from __future__ import annotations
 

@@ -158,3 +158,158 @@ def test_staging_buffers_fit_the_residency_budget(w):
     assert 1 <= n <= 128
     assert 2 * n * (4 * w + 4) <= scu.staging_bytes(w, 4) // 2
     assert scu.buffer_items(4) == 128 and scu.buffer_items(40) == 25
+
+
+# --------------------------------------------------------------------------
+# K5's claim rounds: ``claim_rounds``, the plain model of the kernel's order
+# of work on a large block, then the stream-order tail
+# --------------------------------------------------------------------------
+
+def _claim_block(w, n, seed, dtype):
+    """Cells [w, n] of 150 keys over 40 cells a row (true conflicts in
+    every row), a run of one key, a fifth of the frequencies zero."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 40, (150, w))
+    order = rng.integers(0, 150, n)
+    order[n // 6 : n // 6 + 40] = 7
+    idx = keys[order].T.copy()
+    if dtype == "int32":
+        freqs = rng.integers(0, 3000, n).astype(np.int32)
+    else:
+        freqs = (rng.random(n) * 1000).astype(np.float32)   # not integers
+    freqs[rng.random(n) < 0.2] = 0
+    return idx, freqs
+
+
+def _step(table, idx, freqs, b):
+    """One item's conservative step, in place (int32 wraps)."""
+    rows = np.arange(table.shape[0])
+    cur = table[rows, idx[:, b]]
+    m = cur.min()
+    if table.dtype == np.int32:
+        est = np.int32(((int(m) + int(freqs[b]) + 2**31) % 2**32) - 2**31)
+    else:
+        est = m + freqs[b]
+    table[rows, idx[:, b]] = np.maximum(cur, est)
+
+
+def _apply_round(table, idx, freqs, items):
+    """A round's items at once: pairwise disjoint cells, so one gather and
+    one scatter give the per-item steps in any order."""
+    for k in range(idx.shape[0]):
+        assert np.unique(idx[k, items]).size == items.size
+    if items.size == 0:
+        return
+    rows = np.arange(table.shape[0])[:, None]
+    cur = table[rows, idx[:, items]]
+    if table.dtype == np.int32:
+        est = ((cur.min(axis=0).astype(np.int64) + freqs[items] + 2**31) % 2**32
+               - 2**31).astype(np.int32)
+    else:
+        est = cur.min(axis=0) + freqs[items]
+    table[rows, idx[:, items]] = np.maximum(cur, est)
+
+
+@pytest.mark.parametrize("slot_bits", [4, 8, 19])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+@pytest.mark.parametrize("w", [1, 4, 8])
+def test_claim_rounds_then_tail_equal_the_per_item_fold(w, dtype, slot_bits):
+    """At every switch point s of the rounds (s rounds, then every item
+    left in stream order) the table is the per-item fold's, at tolerance 0:
+    the folded items are closed under "an earlier item shares a cell",
+    however many false conflicts the slots add (16 slots: nearly all)."""
+    n = 300
+    idx, freqs = _claim_block(w, n, 60 + w, dtype)
+    base = _table(w, 40, dtype, 61)
+    want = np.asarray(_reference_fold(jnp.asarray(base), jnp.asarray(idx), jnp.asarray(freqs)))
+    (seg,) = scu.claim_rounds(torch.from_numpy(idx), torch.from_numpy(freqs), 1, n, slot_bits)
+    assert seg.tail.size == 0                 # one CTA: rounds to the end
+    rounds = seg.rounds
+    assert sum(r.size for r in rounds) == np.count_nonzero(freqs)
+    assert len(rounds) > 1
+    table = base.copy()
+    for s in range(len(rounds) + 1):
+        if s:
+            _apply_round(table, idx, freqs, rounds[s - 1])
+        left = np.sort(np.concatenate([np.zeros(0, np.int64), *rounds[s:]]))
+        got = table.copy()
+        for b in left:
+            _step(got, idx, freqs, b)
+        np.testing.assert_array_equal(got, want)
+    if slot_bits == 4 and w > 1:              # false conflicts: rounds past the true depth
+        assert len(rounds) > scu.fold_depths(torch.from_numpy(idx),
+                                             torch.from_numpy(freqs)).depth
+
+
+@pytest.mark.parametrize("min_fold,seg", [(1, 97), (5, 300), (5, 97), (60, 300)])
+def test_claim_rounds_segments_and_tails_equal_the_per_item_fold(min_fold, seg):
+    """The kernel's rule: a round that folds fewer than ``min_fold`` items
+    (two a CTA of its launch) ends the rounds, and the items left are the
+    tail; a block past one segment is folded segment by segment.  Rounds in order, then each
+    tail in stream order: the per-item fold."""
+    n, w = 300, 4
+    idx, freqs = _claim_block(w, n, 70, "int32")
+    base = _table(w, 40, "int32", 71)
+    want = np.asarray(_reference_fold(jnp.asarray(base), jnp.asarray(idx), jnp.asarray(freqs)))
+    segs = scu.claim_rounds(torch.from_numpy(idx), torch.from_numpy(freqs), min_fold, seg, 8)
+    assert len(segs) == -(-n // seg)
+    table = base.copy()
+    for s0, part in zip(range(0, n, seg), segs):
+        for items in part.rounds:
+            assert items.min() >= s0 and items.max() < s0 + seg
+            _apply_round(table, idx, freqs, items)
+        assert np.all(np.diff(part.tail) > 0)
+        for b in part.tail:
+            _step(table, idx, freqs, b)
+        if min_fold > 1 and part.tail.size:
+            assert part.rounds[-1].size < min_fold
+    np.testing.assert_array_equal(table, want)
+    assert sum(r.size for p in segs for r in p.rounds) + sum(p.tail.size for p in segs) \
+        == np.count_nonzero(freqs)
+    if min_fold == 60:
+        assert segs[0].tail.size > 0
+
+
+def test_claim_rounds_of_one_key_hand_all_but_one_item_to_the_tail():
+    idx = np.tile(np.array([[3], [5], [2], [9]]), (1, 500))
+    freqs = np.ones(500, np.int32)
+    freqs[:3] = 0
+    (seg,) = scu.claim_rounds(torch.from_numpy(idx), torch.from_numpy(freqs), 2, 500)
+    assert [r.tolist() for r in seg.rounds] == [[3]]
+    assert seg.tail.tolist() == list(range(4, 500))
+
+
+def test_claim_slots_are_the_kernels_fibonacci_hash():
+    """Row k's cell c goes to the top bits of (k << 32 | c) times the 64-bit
+    golden ratio, mod 2^64; cells shared by two items share the slot."""
+    idx = np.array([[0, 1, 12_345_678, 1], [0, 7, 2**31 - 1, 1]])
+    got = scu.claim_slots(idx, 19)
+    for k in range(2):
+        for j in range(idx.shape[1]):
+            key = (k << 32) | int(idx[k, j])
+            assert got[k, j] == ((key * 0x9E3779B97F4A7C15) % 2**64) >> (64 - 19)
+    assert got[0, 1] == got[0, 3] and got.min() >= 0 and got.max() < 2**19
+    assert scu.claim_slots(idx, 4).max() < 16
+
+
+@pytest.mark.parametrize("w,b,want", [(4, scu.ROUNDS_MIN_ITEMS, True),
+                                      (4, scu.ROUNDS_MIN_ITEMS - 1, False),
+                                      (8, 1 << 16, True), (9, 1 << 16, False)])
+def test_rounds_route_takes_large_blocks_with_rows_in_registers(w, b, want):
+    assert scu.rounds_route(w, b) == want
+
+
+def test_round_scratch_only_for_tables_the_rounds_may_fold():
+    """CPU tables, shared-route tables and tables past eight rows get
+    none; a conservative KernelSketch on the CPU carries none."""
+    from repro_torch.core import sketch as tsk
+    from repro_torch.core.hashing import KeySchema
+    from repro_torch.kernels.ops import KernelSketch
+
+    assert scu.round_scratch(torch.zeros((4, 1 << 16), dtype=torch.int32)) is None
+    spec = tsk.mod_sketch_spec(KeySchema((1 << 32, 1 << 32)), [(0,), (1,)], (64, 64), 4)
+    ks = KernelSketch(spec, torch.Generator().manual_seed(0), mode="conservative",
+                      device="cpu")
+    assert ks.fold_scratch is None
+    # the claim slots (2 MB at most) hold a segment's list of 2^17 items
+    assert scu.CLAIM_SLOT_BITS >= 17 and (1 << scu.CLAIM_SLOT_BITS) * 4 <= 2 << 20

@@ -1193,6 +1193,174 @@ def test_k5i_adversarial_blocks_match_plain(cuda, dtype, kind, w):
         assert not torch.equal(a, t)
 
 
+# K5's claim rounds (a large block on the global route, across the card)
+
+def _edge_spec(ranges, w=4):
+    return sk.mod_sketch_spec(KeySchema((1 << 32, 1 << 32)), [(0,), (1,)], ranges, w)
+
+
+def _fold_in_rounds(cuda, spec, items, freqs, base, seed):
+    """K5 on one block through claim rounds (``scu.rounds_route`` must
+    take it) against the per-item fold of host copies, at tolerance 0.
+    The rounds' counter adds up to the block's nonzero items and equals
+    the plain model's (``claim_rounds``) at the launch's ``rounds_grid``;
+    returns the counts."""
+    plan = make_plan(spec)
+    params = _params(spec, seed, cuda)
+    w, h_pad = base.shape
+    assert scu.residency(w, h_pad, 4) == "global" and scu.rounds_route(w, len(freqs))
+    chunks = spec.schema.module_chunks(torch.from_numpy(items.astype(np.int64)).to(cuda))
+    f = torch.from_numpy(freqs).to(cuda)
+    scratch = scu.RoundScratch(cuda)
+    n0 = _cuda.LAUNCHES["sketch_update_conservative"]
+    got = scu.sketch_update_conservative(plan, base.clone(), chunks, f, params.q, params.r,
+                                         scratch)
+    want = scu.sketch_update_conservative_ref(plan, base.cpu(), chunks.cpu(), f.cpu(),
+                                              params.q.cpu(), params.r.cpu())
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sketch_update_conservative"] == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    counts = scratch.counts()
+    nonzero = int(np.count_nonzero(freqs))
+    assert counts["blocks"] == 1
+    assert counts["round_items"] + counts["tail_items"] == nonzero
+    min_fold, seg = scu.rounds_grid(plan, w, base.dtype, cuda)
+    model = scu.claim_rounds(all_indices(plan, chunks, params.q, params.r), f, min_fold, seg)
+    assert counts == {"blocks": 1, "rounds": sum(len(p.rounds) for p in model),
+                      "round_items": sum(r.size for p in model for r in p.rounds),
+                      "tail_items": sum(p.tail.size for p in model)}
+    # the scratch is reused: the same block again folds the same way
+    again = scu.sketch_update_conservative(plan, got, chunks, f, params.q, params.r, scratch)
+    scu.sketch_update_conservative_ref(plan, want, chunks.cpu(), f.cpu(), params.q.cpu(),
+                                       params.r.cpu())
+    assert torch.equal(again.cpu(), want)
+    assert scratch.counts() == {k: 2 * v for k, v in counts.items()}
+    return counts
+
+
+def _edges(n, seed, order):
+    """n distinct edges (source, target): sources Zipf(0.79) over 1,000,000
+    ids, as the ingest cell's configuration draws them, targets uniform;
+    ``order`` "random" or "source" (sorted)."""
+    rng = np.random.default_rng(seed)
+    src_ids = rng.integers(0, 1 << 32, 1_000_000, dtype=np.uint64)
+    weight = np.arange(1, 1_000_001, dtype=np.float64) ** -0.79
+    src = src_ids[rng.choice(1_000_000, 2 * n, p=weight / weight.sum())]
+    tgt = rng.integers(0, 1 << 32, 2 * n, dtype=np.uint64)
+    pairs = np.stack([src, tgt], axis=1)
+    _, first = np.unique(pairs, axis=0, return_index=True)
+    edges = pairs[np.sort(first)[:n]]                 # the first n distinct, as drawn
+    assert edges.shape[0] == n
+    if order == "source":
+        edges = edges[np.lexsort((edges[:, 1], edges[:, 0]))]
+    return edges.astype(np.uint32)
+
+
+@pytest.mark.parametrize("order", ["random", "source"])
+def test_k5_rounds_on_the_ingest_cells_block_shape(cuda, order):
+    """The ingest cell's shape: w 4, ranges 4,096 x 4,096 (a 268 MB table),
+    65,536 distinct edges with counts, in random and in source order.
+    Nearly every item folds in the rounds."""
+    spec = _edge_spec((4096, 4096))
+    rng = np.random.default_rng(80)
+    freqs = np.minimum(rng.geometric(0.3, 1 << 16), 17_000).astype(np.int32)
+    h_pad = su.padded_table_size(spec.table_size, 512)
+    base = torch.zeros((4, h_pad), dtype=torch.int32, device=cuda)
+    counts = _fold_in_rounds(cuda, spec, _edges(1 << 16, 81, order), freqs, base, 82)
+    assert counts["round_items"] >= 0.99 * (1 << 16)
+
+
+def _sharing_row0(spec, params, n, rng, cuda):
+    """n distinct keys of one source whose row-0 cells are all one cell
+    (their other rows differ), found among 2^22 random targets."""
+    plan = make_plan(spec)
+    tgt = np.unique(rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint64))
+    keys = np.stack([np.full_like(tgt, 12345), tgt], axis=1)
+    chunks = spec.schema.module_chunks(torch.from_numpy(keys.astype(np.int64)).to(cuda))
+    row0 = all_indices(plan, chunks, params.q, params.r)[0].cpu().numpy()
+    cells, count = np.unique(row0, return_counts=True)
+    pick = np.flatnonzero(row0 == cells[np.argmax(count)])
+    assert pick.size >= n
+    return keys[pick[:n]].astype(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("kind", ["one_key", "chain", "shared_cell", "mid_chunk"])
+def test_k5_rounds_adversarial_blocks_match_plain(cuda, kind, dtype):
+    """Claim rounds on a global-route table of 4 x 65,536 cells, cells near
+    2^31 so that int32 estimates wrap inside the rounds, non-integer
+    float32 frequencies, a fifth of them zero: ``one_key`` (one key 20,000
+    times: one round, then all to the tail), ``chain`` (5,000 keys that all
+    share row 0's cell: one long chain), ``shared_cell`` (those keys shuffled
+    into 30,000 distinct ones), ``mid_chunk`` (5,077 distinct keys, one key
+    3,000 times, 2,000 distinct keys: the tail starts in the middle of a
+    staging chunk)."""
+    spec = _edge_spec((256, 256))
+    rng = np.random.default_rng(90)
+    params = _params(spec, 91, cuda)
+    distinct = _edges(40_000, 92, "random")
+    if kind == "one_key":
+        items = np.repeat(distinct[:1], 20_000, axis=0)
+    elif kind == "chain":
+        items = _sharing_row0(spec, params, 5000, rng, cuda)
+    elif kind == "shared_cell":
+        items = np.concatenate([_sharing_row0(spec, params, 5000, rng, cuda), distinct[:30_000]])
+        items = items[rng.permutation(items.shape[0])]
+    else:
+        items = np.concatenate([distinct[:5077], np.repeat(distinct[5077:5078], 3000, axis=0),
+                                distinct[5078:7078]])
+    n = items.shape[0]
+    if dtype == torch.int32:
+        freqs = rng.integers(0, 1 << 16, n).astype(np.int32)
+    else:
+        freqs = (rng.random(n) * 1000).astype(np.float32)
+    freqs[rng.random(n) < 0.2] = 0
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    base = _cons_table((4, h_pad), dtype, 93, cuda)
+    counts = _fold_in_rounds(cuda, spec, items, freqs, base, 91)
+    if kind in ("one_key", "chain"):
+        assert counts["rounds"] == 1 and counts["round_items"] == 1
+    else:
+        assert counts["rounds"] > 1 and counts["tail_items"] > 0
+
+
+@pytest.mark.parametrize("n", [1, 65_537, 140_000])
+def test_k5_rounds_at_block_sizes(cuda, monkeypatch, n):
+    """Blocks of 1 item, of 65,537 and of 140,000 (past one segment) in
+    claim rounds (the size rule lowered to 1 item)."""
+    monkeypatch.setattr(scu, "ROUNDS_MIN_ITEMS", 1)
+    spec = _edge_spec((256, 256))
+    rng = np.random.default_rng(95)
+    freqs = rng.integers(0, 1 << 12, n).astype(np.int32)
+    freqs[rng.random(n) < 0.2] = 0
+    freqs[0] = 7
+    h_pad = su.padded_table_size(spec.table_size, 128)
+    base = _cons_table((4, h_pad), torch.int32, 96, cuda)
+    counts = _fold_in_rounds(cuda, spec, _edges(n, 97, "random"), freqs, base, 98)
+    assert counts["round_items"] >= 1
+
+
+def test_k5_rounds_scratch_is_per_sketch_and_kept(cuda):
+    """A conservative KernelSketch on a global-route table allocates the
+    rounds' scratch once (2 MB of claims at most) and counts its blocks;
+    a shared-route one has none."""
+    spec = _edge_spec((256, 256))
+    params = _params(spec, 99, cuda)
+    ks = KernelSketch(spec, (params.q, params.r), mode="conservative", device=cuda)
+    scratch = ks.fold_scratch
+    assert scratch.claims.numel() * scratch.claims.element_size() <= 2 << 20
+    edges = _edges(1 << 14, 100, "random")
+    freqs = np.ones(1 << 14, np.int32)
+    ks.update(edges, freqs)
+    ks.update(edges[:100], freqs[:100])        # below the size rule: one CTA's walk
+    assert ks.fold_scratch is scratch
+    assert scratch.counts()["blocks"] == 1
+    small = _edge_spec((8, 8))
+    sp = _params(small, 1, cuda)
+    assert KernelSketch(small, (sp.q, sp.r), mode="conservative",
+                        device=cuda).fold_scratch is None
+
+
 def test_conservative_wrappers_refuse_what_they_do_not_take(cuda):
     spec = _hspec().levels[-1]
     plan = make_plan(spec)

@@ -2,7 +2,7 @@
 trees on one card, in turns, beside ``index_add_`` of the same values where
 one call computes the same function.
 
-    python3 tools/fold_ab.py --trees OLD NEW [--out FILE]
+    python3 tools/fold_ab.py --trees OLD NEW [--k5] [--out FILE]
     python3 tools/fold_ab.py --spans TREE [--out FILE]
 
 Each tree is a checkout of this repository (its ``src/repro_torch``).  The
@@ -17,10 +17,19 @@ and times, with L2 evicted before every call (CUDA events):
   edges deleted) into a zero signed hierarchy of the same spec;
 - K6 and K6f: the same block into a zero ``4 x 4096^2`` signed flat
   sketch, int32 and float32;
-- K5, the conservative fold, on block 0 of the main stream into a zero
-  ``4 x 4096^2`` flat sketch (its global route), and on block 0 and the
-  heaviest block into a zero ``5 x 4092`` mod-sketch of ranges 62 x 66
-  (its shared route: ``chip_smoke.py``'s accuracy path), int32;
+- K5, the conservative fold, on block 0 and the heaviest block of the
+  main stream into a zero ``4 x 4096^2`` flat sketch (its global route:
+  claim rounds on a tree that has them), and on block 0 and the heaviest
+  block into a zero ``5 x 4092`` mod-sketch of ranges 62 x 66 (its shared
+  route: ``chip_smoke.py``'s accuracy path), int32;
+- K5 at the block shape of the benchmark's ``twitter-cu.ingest``: blocks
+  128-133 of its pool (the first the window folds; ``edge_blocks`` with
+  the traffic's stream seed and the run seed ``CELL_SEED``) with the
+  configuration's ``hash_seed``, each into a zero table; a tree with claim
+  rounds also reports each block's rounds, items folded in rounds and
+  tail (its counter) and the round sizes of the plain model, and times
+  the first 256 to 65,536 items of block 128 on both of K5's global
+  routes (``ROUNDS_MIN_ITEMS`` forced);
 - K5i on block 0 into zero int32 hierarchy levels of the main spec
   (level 0 shared, level 1 global), one launch; the conservative rows
   also carry the kernel's device time (torch.profiler, L2 evicted);
@@ -62,6 +71,10 @@ import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parents[1]
+CELL_BLOCKS = range(128, 134)     # the ingest cell's first timed blocks (after 128 warm-up)
+CELL_SEED = 2_654_435_761
+SWEEP = (256, 512, 1024, 2048, 4096, 16384, 65536)
 STREAM = dict(n_src=200_000, n_tgt=600_000, n_edges=2_000_000,
               n_occurrences=20_000_000, s_src=1.1, s_tgt=1.1)   # chip_smoke.STREAM
 BLOCK = 1 << 16
@@ -209,7 +222,79 @@ def spans(tree: str) -> dict:
     return out
 
 
-def one(tree: str) -> dict:
+def cell_rows(out: dict, scu, cold_ms, device_ms, rounds: bool) -> None:
+    """K5 at the ingest cell's block shape (see the module's docstring):
+    ``K5_cell`` per block, and on a tree with claim rounds ``K5_sweep``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from perfbench import harness
+    from perfbench.reference import hashing as ref_hash
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.hashing import KeySchema
+    from repro_torch.kernels import sketch_update as su
+    from repro_torch.kernels.hashes import all_indices, make_plan
+
+    dev = torch.device("cuda")
+    cfg = harness.load_json(harness.BENCH / "configs" / "twitter-edges-cu.json")
+    tf = dict(harness.load_json(harness.BENCH / "traffic" / "edge_blocks_random.json"),
+              pool_blocks=CELL_BLOCKS[-1] + 1)
+    keys, freqs = harness.generator(tf["generator"]).generate(
+        cfg, tf, harness.seed_for(CELL_SEED, 1), "cuda")
+    g = torch.Generator(device=dev).manual_seed(int(cfg["hash_seed"]))
+    n_digits = sum(ref_hash.digits_per_module(cfg["key_domains"]))
+    q = torch.randint(0, ref_hash.P31, (cfg["width"], n_digits), generator=g, device=dev)
+    r = torch.randint(0, ref_hash.P31, (cfg["width"], len(cfg["partition"])), generator=g,
+                      device=dev)
+    spec = sk.mod_sketch_spec(KeySchema(tuple(cfg["key_domains"])), cfg["partition"],
+                              cfg["ranges"], cfg["width"])
+    plan = make_plan(spec)
+    w, h_pad = spec.width, su.padded_table_size(spec.table_size, 512)
+    table = torch.zeros((w, h_pad), dtype=torch.int32, device=dev)
+    grid = scu.rounds_grid(plan, w, torch.int32, dev) if rounds else None
+    rows = []
+    for b in CELL_BLOCKS:
+        chunks = spec.schema.module_chunks(torch.from_numpy(keys[b].astype(np.int64)).to(dev))
+        f = torch.from_numpy(freqs[b]).to(dev, torch.int32)
+        idx = all_indices(plan, chunks, q, r)
+        if rounds:
+            scratch = scu.RoundScratch(dev)
+            scu.sketch_update_conservative(plan, table.clone(), chunks, f, q, r, scratch)
+            row = {"counts": scratch.counts(), "round_sizes": [
+                int(x.size) for part in scu.claim_rounds(idx, f, *grid) for x in part.rounds]}
+            call = lambda: scu.sketch_update_conservative(  # noqa: E731
+                plan, table, chunks, f, q, r, scratch)
+        else:
+            row = {}
+            call = lambda: scu.sketch_update_conservative(plan, table, chunks, f, q, r)  # noqa: E731
+        row.update(block=b, ms=cold_ms(call, 20),
+                   device_ms=device_ms(call, "sk_conservative_update", 5),
+                   depths=scu.fold_depths(idx, f)._asdict())
+        rows.append(row)
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    out["K5_cell"] = {"rows": rows, "ms": sum(x["ms"] for x in rows) / len(rows),
+                      "warm_ms": float("nan"), "grid": grid}
+    if not rounds:
+        return
+    chunks = spec.schema.module_chunks(
+        torch.from_numpy(keys[CELL_BLOCKS[0]].astype(np.int64)).to(dev))
+    f = torch.from_numpy(freqs[CELL_BLOCKS[0]]).to(dev, torch.int32)
+    sweep = []
+    rule = scu.ROUNDS_MIN_ITEMS
+    for n in SWEEP:
+        entry = {"items": n}
+        for route, least in (("rounds", 1), ("one_cta", 1 << 40)):
+            scu.ROUNDS_MIN_ITEMS = least
+            scratch = scu.RoundScratch(dev)
+            entry[route + "_ms"] = cold_ms(lambda: scu.sketch_update_conservative(
+                plan, table, chunks[:n], f[:n], q, r, scratch), 20)
+        sweep.append(entry)
+    scu.ROUNDS_MIN_ITEMS = rule
+    out["K5_sweep"] = sweep
+
+
+def one(tree: str, k5_only: bool = False) -> dict:
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import numpy as np
     import torch
@@ -270,6 +355,58 @@ def one(tree: str) -> dict:
     def k3(table, chunks, vals):
         hu.hier_update(hplan, table, chunks, vals, q, r)
 
+    # K5 on both routes and K5i, into zero int32 tables
+    from repro_torch.kernels import sketch_update_conservative as scu
+
+    rounds = hasattr(scu, "RoundScratch")
+
+    def cons_row(name, call, idxs, vals, reps=20):
+        kernel = "sk_conservative_" + ("fold" if name == "K5i" else "update")
+        out[name] = {"ms": cold_ms(call, reps), "warm_ms": warm_ms(call, reps),
+                     "device_ms": device_ms(call, kernel, reps // 4)}
+        if hasattr(scu, "fold_depths"):
+            out[name]["depths"] = [scu.fold_depths(i, vals)._asdict() for i in idxs]
+
+    def k5_call(cplan, table, chunks, vals, cq, cr):
+        """One K5 call, with a scratch of its own where the tree has claim
+        rounds; (call, the counts of one call or None)."""
+        if not rounds:
+            return (lambda: scu.sketch_update_conservative(cplan, table, chunks, vals, cq, cr),
+                    None)
+        scratch = scu.RoundScratch(table.device)
+        scu.sketch_update_conservative(cplan, table.clone(), chunks, vals, cq, cr, scratch)
+        counts = scratch.counts()
+        return (lambda: scu.sketch_update_conservative(cplan, table, chunks, vals, cq, cr,
+                                                       scratch), counts)
+
+    def main_block(b):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        return (torch.from_numpy(stream.items[sl].astype(np.int64)).to(dev),
+                torch.from_numpy(stream.freqs[sl]).to(dev, torch.int32))
+
+    items0, vals0 = main_block(0)
+    acc = sk.mod_sketch_spec(spec.schema, [(0,), (1,)], (62, 66), 5)
+    for name, cspec, b in (("K5_global", spec, 0), ("K5_shared", acc, 0),
+                           ("K5_shared_heaviest", acc, hb), ("K5_global_heaviest", spec, hb)):
+        cplan = make_plan(cspec)
+        cq, cr = params(rng, cspec)
+        it, vals = main_block(b)
+        chunks = cspec.schema.module_chunks(it)
+        table = torch.zeros((cspec.width, su.padded_table_size(cspec.table_size, 128)),
+                            dtype=torch.int32, device=dev)
+        call, counts = k5_call(cplan, table, chunks, vals, cq, cr)
+        cons_row(name, call, [all_indices(cplan, chunks, cq, cr)], vals)
+        out[name]["route"] = scu.residency(cspec.width, table.shape[1], 4)
+        out[name]["rounds"] = counts
+    cell_rows(out, scu, cold_ms, device_ms, rounds)
+    idxs = hh.hierarchy_indices(hspec, sk.SketchParams(q=q, r=r), items0)
+    tables = [torch.zeros((4, lv.table_size), dtype=torch.int32, device=dev)
+              for lv in hspec.levels]
+    cons_row("K5i", lambda: scu.conservative_fold_tables(tables, idxs, vals0), idxs, vals0)
+    del tables, idxs
+    if k5_only:
+        return out
+
     for name, b, dtype in (("K3", 0, torch.int32), ("K3_heaviest", hb, torch.int32),
                            ("K3f", 0, torch.float32)):
         sl = slice(b * BLOCK, (b + 1) * BLOCK)
@@ -307,40 +444,6 @@ def one(tree: str) -> dict:
             (sign.to(dtype) * v).reshape(-1))
     del chunks, idx, sign, flat
 
-    # K5 on both routes and K5i, into zero int32 tables
-    from repro_torch.kernels import sketch_update_conservative as scu
-
-    def cons_row(name, call, idxs, vals, reps=20):
-        kernel = "sk_conservative_" + ("fold" if name == "K5i" else "update")
-        out[name] = {"ms": cold_ms(call, reps), "warm_ms": warm_ms(call, reps),
-                     "device_ms": device_ms(call, kernel, reps // 4)}
-        if hasattr(scu, "fold_depths"):
-            out[name]["depths"] = [scu.fold_depths(i, vals)._asdict() for i in idxs]
-
-    def main_block(b):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
-        return (torch.from_numpy(stream.items[sl].astype(np.int64)).to(dev),
-                torch.from_numpy(stream.freqs[sl]).to(dev, torch.int32))
-
-    items0, vals0 = main_block(0)
-    acc = sk.mod_sketch_spec(spec.schema, [(0,), (1,)], (62, 66), 5)
-    for name, cspec, b in (("K5_global", spec, 0), ("K5_shared", acc, 0),
-                           ("K5_shared_heaviest", acc, hb)):
-        cplan = make_plan(cspec)
-        cq, cr = params(rng, cspec)
-        it, vals = main_block(b)
-        chunks = cspec.schema.module_chunks(it)
-        table = torch.zeros((cspec.width, su.padded_table_size(cspec.table_size, 128)),
-                            dtype=torch.int32, device=dev)
-        cons_row(name, lambda: scu.sketch_update_conservative(cplan, table, chunks, vals,
-                                                              cq, cr),
-                 [all_indices(cplan, chunks, cq, cr)], vals)
-        out[name]["route"] = scu.residency(cspec.width, table.shape[1], 4)
-    idxs = hh.hierarchy_indices(hspec, sk.SketchParams(q=q, r=r), items0)
-    tables = [torch.zeros((4, lv.table_size), dtype=torch.int32, device=dev)
-              for lv in hspec.levels]
-    cons_row("K5i", lambda: scu.conservative_fold_tables(tables, idxs, vals0), idxs, vals0)
-    del tables, idxs
 
     # K1 and K1f at chip_smoke.py's shapes (see the module's docstring)
     k1_rng = np.random.default_rng(20)
@@ -427,11 +530,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--spans", metavar="TREE")
+    ap.add_argument("--k5", action="store_true", help="time K5 and K5i alone")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if args.one:
-        print(json.dumps(one(args.one)), flush=True)
+        print(json.dumps(one(args.one, args.k5)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -449,7 +553,8 @@ def main(argv=None) -> int:
     old, new = args.trees
     runs = []
     for tree in (old, new, new, old):
-        done = subprocess.run([sys.executable, __file__, "--one", tree],
+        done = subprocess.run([sys.executable, __file__, "--one", tree,
+                               *(["--k5"] if args.k5 else [])],
                               capture_output=True, text=True)
         if done.returncode != 0:
             print(done.stdout + done.stderr, file=sys.stderr)
@@ -461,8 +566,10 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(result, indent=1))
     print(card)
     for name in ("K3", "K3_heaviest", "K3f", "K8", "K6", "K6f", "K8f_embed", "K5_global",
-                 "K5_shared", "K5_shared_heaviest", "K5i",
+                 "K5_global_heaviest", "K5_shared", "K5_shared_heaviest", "K5i", "K5_cell",
                  *(name for name in runs[0] if name.startswith("K1"))):
+        if name not in runs[0]:
+            continue
         print(name, " ".join(f"{run[name]['ms']:.5f}/{run[name].get('index_add_ms')}"
                              f"/{run[name]['warm_ms']:.5f}/{run[name].get('device_ms')}"
                              for run in runs))
